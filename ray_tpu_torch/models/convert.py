@@ -1,0 +1,44 @@
+"""Weights between the JAX GPT-2 param tree and the port's state_dict.
+
+The port keeps flax's parameter names and layouts (``Dense`` kernels
+[in, out], norms ``scale``/``bias``), so conversion only flattens or
+nests the paths: ``{"params": {"h_0": {"c_attn": {"kernel": a}}}}`` <->
+``{"h_0.c_attn.kernel": a}``.  The tree side holds numpy arrays, as
+``jax.tree_util.tree_map(np.asarray, params)`` gives them.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def gpt2_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
+    """JAX param tree of numpy arrays -> state_dict of CPU tensors (ready
+    for ``GPT2.load_state_dict``, which copies onto the model's device)."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.")
+            else:
+                flat[prefix + key] = torch.from_numpy(np.array(val))
+
+    walk(tree["params"], "")
+    return flat
+
+
+def gpt2_params_to_numpy(state_dict) -> dict:
+    """state_dict -> ``{"params": {...}}`` nested dict of numpy arrays."""
+    params: dict = {}
+    for name, val in state_dict.items():
+        node = params
+        *parents, leaf = name.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val.detach().cpu().numpy()
+    return {"params": params}

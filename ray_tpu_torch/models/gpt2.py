@@ -1,0 +1,341 @@
+"""GPT-2 in PyTorch — counterpart of ``ray_tpu/models/gpt2.py``.
+
+Same configuration, parameter names and numerics as the flax model, so
+converted weights give the same logits and loss:
+
+- parameters are float32 and are cast to ``cfg.dtype`` where they are
+  used (``wte``/``wpe`` at the lookup, each ``Dense`` kernel and bias at
+  its product), as flax does with ``param_dtype=float32``;
+- ``Dense`` kernels are ``[in, out]`` and keep flax's names, so
+  ``h_0/c_attn/kernel`` is ``h_0.c_attn.kernel`` here and conversion is
+  a flattening of paths (``convert.py``);
+- ``LayerNorm`` is flax's: eps 1e-6, float32 statistics with the fast
+  variance E[x^2] - E[x]^2 even under a bf16 dtype, result cast back;
+- GELU is the tanh approximation (``nn.gelu``'s default);
+- the qkv split is q|k|v along the last axis, each reshaped (b, t, h, d);
+- the tied logits and the cross-entropy products that JAX runs with
+  ``preferred_element_type=float32`` go through ``matmul_f32``: the
+  bf16 operands are upcast, so products are exact and sums float32, the
+  JAX semantics.  The cost is TF32 tensor-core time on float32 copies
+  of the operands instead of bf16 products (``ops/matmul.py``).
+
+This slice covers ``attn_impl`` "dense" and "flash" on one device.  The
+parallel attention implementations, sharding (``mesh``/``rules``), MoE
+blocks and the decode-mode KV cache raise NotImplementedError naming the
+slice of the port that brings them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..device import resolve_device
+from ..ops.matmul import matmul_f32
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_layer: int = 12
+    n_head: int = 12
+    d_model: int = 768
+    d_ff: int = 3072
+    max_seq: int = 1024
+    dropout: float = 0.0
+    dtype: Any = torch.bfloat16
+    attn_impl: str = "dense"          # dense | flash (ring | ulysses later)
+    remat: bool = True
+    mesh: Any = None                  # sharded runs: a later slice
+    rules: Any = None
+    moe_num_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    @staticmethod
+    def small() -> "GPT2Config":
+        return GPT2Config()
+
+    @staticmethod
+    def tiny() -> "GPT2Config":
+        return GPT2Config(vocab_size=512, n_layer=2, n_head=4, d_model=128,
+                          d_ff=512, max_seq=128)
+
+    @staticmethod
+    def medium() -> "GPT2Config":
+        return GPT2Config(n_layer=24, n_head=16, d_model=1024, d_ff=4096)
+
+    def flops_per_token(self) -> float:
+        """Approximate training FLOPs per token (fwd+bwd ≈ 6N + attn)."""
+        n_params = (self.vocab_size * self.d_model
+                    + self.max_seq * self.d_model
+                    + self.n_layer * (4 * self.d_model ** 2
+                                      + 2 * self.d_model * self.d_ff))
+        attn = 6 * 2 * self.n_layer * self.d_model * self.max_seq
+        return 6.0 * n_params + attn
+
+    def decode_flops_per_token(self,
+                               context_len: Optional[int] = None) -> float:
+        """FLOPs to decode one token with a KV cache at ``context_len``
+        (default max_seq/2): 2 per matmul weight (forward only) plus
+        reading the cached K/V once per layer.  Lookups are gathers, so
+        only the tied unembedding counts for wte."""
+        ctx = self.max_seq // 2 if context_len is None else context_len
+        matmul_params = (self.vocab_size * self.d_model
+                         + self.n_layer * (4 * self.d_model ** 2
+                                           + 2 * self.d_model * self.d_ff))
+        attn = 4 * self.n_layer * self.d_model * ctx
+        return 2.0 * matmul_params + attn
+
+
+def _check_supported(cfg: GPT2Config) -> None:
+    if cfg.attn_impl not in ("dense", "flash"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} arrives with the parallelism "
+            "slice of the port (ring/Ulysses attention)")
+    if cfg.mesh is not None or cfg.rules is not None:
+        raise NotImplementedError(
+            "sharded GPT-2 (mesh/rules) arrives with the parallelism "
+            "slice of the port")
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(
+            "MoE blocks arrive with the parallelism slice of the port "
+            "(expert parallelism)")
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: kernel [in, out] and bias in float32, both cast
+    with the input to ``dtype`` for the product."""
+
+    def __init__(self, d_in: int, d_out: int, dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(d_in, d_out, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=...)``: float32 statistics, fast
+    variance clipped at 0, eps 1e-6, result cast to ``dtype``."""
+
+    eps = 1e-6
+
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+def _attention(cfg: GPT2Config, q, k, v):
+    """q, k, v: [B, T, H, D] -> [B, T, H, D]."""
+    if cfg.attn_impl == "flash":
+        from ..ops.flash_attention import flash_attention
+
+        # The JAX model asks for whole-sequence blocks; on the card the
+        # blocks only validate T (the kernels tile by 64 rows).
+        return flash_attention(q, k, v, causal=True,
+                               block_q=1024, block_k=1024)
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    scores = matmul_f32(qh, kh.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    t = q.shape[1]
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    return torch.matmul(p, vh).transpose(1, 2)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config, device):
+        super().__init__()
+        self.cfg = cfg
+        d, dt = cfg.d_model, cfg.dtype
+        self.ln_1 = LayerNorm(d, dt, device)
+        self.c_attn = Dense(d, 3 * d, dt, device)
+        self.c_proj = Dense(d, d, dt, device)
+        self.ln_2 = LayerNorm(d, dt, device)
+        self.mlp_in = Dense(d, cfg.d_ff, dt, device)
+        self.mlp_out = Dense(cfg.d_ff, d, dt, device)
+
+    def forward(self, x, cache=None):
+        if cache is not None:
+            raise NotImplementedError(
+                "decode mode (paged KV cache) arrives with the serving "
+                "slice of the port")
+        cfg = self.cfg
+        h = cfg.n_head
+        d_head = cfg.d_model // h
+        b, t = x.shape[0], x.shape[1]
+        qkv = self.c_attn(self.ln_1(x))
+        q, k, v = (z.unflatten(-1, (h, d_head))
+                   for z in qkv.split(cfg.d_model, dim=-1))
+        att = _attention(cfg, q, k, v).reshape(b, t, cfg.d_model)
+        x = x + self.c_proj(att)
+        y = F.gelu(self.mlp_in(self.ln_2(x)), approximate="tanh")
+        return x + self.mlp_out(y)
+
+
+class GPT2(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.wte = nn.Parameter(
+            torch.empty(cfg.vocab_size, cfg.d_model, device=device))
+        self.wpe = nn.Parameter(
+            torch.empty(cfg.max_seq, cfg.d_model, device=device))
+        for i in range(cfg.n_layer):
+            self.add_module(f"h_{i}", Block(cfg, device))
+        self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, device)
+
+    def blocks(self):
+        return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
+
+    def forward(self, tokens, return_hidden: bool = False,
+                kv_cache=None, positions=None):
+        """tokens [B, T] -> logits [B, T, V] float32 (or the final hidden
+        state [B, T, D] in ``cfg.dtype`` with ``return_hidden``)."""
+        if kv_cache is not None or positions is not None:
+            raise NotImplementedError(
+                "decode mode (paged KV cache) arrives with the serving "
+                "slice of the port")
+        cfg = self.cfg
+        t = tokens.shape[1]
+        wte = self.wte.to(cfg.dtype)
+        x = F.embedding(tokens, wte) + self.wpe[:t].to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for blk in self.blocks():
+            # Remat per block: the block's forward (flash attention
+            # included) runs again in the backward.
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return matmul_f32(x, wte.t())
+
+
+def gpt2_init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
+              device=None) -> GPT2:
+    """A GPT2 with the JAX model's initializers: normal(0.02) for wte and
+    the input projections, normal(0.02 / sqrt(2 L)) for the residual
+    output projections, normal(0.01) for wpe, zero biases, unit norm
+    scales.  ``generator`` must live on ``device`` (default: seed 0)."""
+    device = resolve_device(device)
+    model = GPT2(cfg, device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    resid = 0.02 / math.sqrt(2 * cfg.n_layer)
+    with torch.no_grad():
+        model.wte.normal_(0.0, 0.02, generator=generator)
+        model.wpe.normal_(0.0, 0.01, generator=generator)
+        for blk in model.blocks():
+            blk.c_attn.kernel.normal_(0.0, 0.02, generator=generator)
+            blk.c_proj.kernel.normal_(0.0, resid, generator=generator)
+            blk.mlp_in.kernel.normal_(0.0, 0.02, generator=generator)
+            blk.mlp_out.kernel.normal_(0.0, resid, generator=generator)
+    return model
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Fused chunked cross entropy: never holds the [B, T, V] logits.
+
+    Forward walks sequence chunks and saves only each row's
+    log-sum-exp; backward recomputes each chunk's logits once and folds
+    softmax-minus-onehot straight into the dX and dWte products."""
+
+    @staticmethod
+    def forward(ctx, x, wte, targets, chunk):
+        b, t, _d = x.shape
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        lses = []
+        for c in range(t // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            logits = matmul_f32(x[:, sl], wte.t())             # [b, c, V]
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = logits.gather(-1, targets[:, sl, None])[..., 0]
+            total = total + (lse - tgt).sum()
+            lses.append(lse)
+        ctx.save_for_backward(x, wte, targets, torch.stack(lses))
+        ctx.chunk = chunk
+        return total / (b * t)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wte, targets, lses = ctx.saved_tensors
+        chunk = ctx.chunk
+        b, t, d = x.shape
+        scale = g / (b * t)
+        dx = torch.empty_like(x)
+        # float32 accumulator: bf16 chunk-wise accumulation would
+        # compound rounding across T/chunk steps.
+        dw = torch.zeros(wte.shape, dtype=torch.float32, device=x.device)
+        for c in range(t // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            xc = x[:, sl]
+            p = matmul_f32(xc, wte.t())
+            p.sub_(lses[c][..., None]).exp_()                  # softmax
+            p.scatter_add_(-1, targets[:, sl, None],
+                           torch.full_like(p[..., :1], -1.0))  # - onehot
+            dl = (p * scale).to(x.dtype)
+            dx[:, sl] = torch.matmul(dl, wte)
+            dw += matmul_f32(dl.reshape(-1, dl.shape[-1]).t(),
+                             xc.reshape(-1, d))
+        return dx, dw.to(wte.dtype), None, None
+
+
+def chunked_xent(x, wte, targets, chunk: int):
+    """Mean next-token cross entropy of ``x @ wte.T`` against
+    ``targets``, computed ``chunk`` positions at a time."""
+    return _ChunkedXent.apply(x, wte, targets.long(), chunk)
+
+
+def gpt2_loss_fn(cfg: GPT2Config, model: GPT2, batch,
+                 loss_chunk: int = 128) -> torch.Tensor:
+    """Next-token cross entropy; batch: {"tokens": [B, T+1] ints}."""
+    if cfg.moe_num_experts > 0:
+        raise NotImplementedError(
+            "the MoE auxiliary loss arrives with the parallelism slice of "
+            "the port")
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
+    t = inputs.shape[1]
+    if loss_chunk and t % loss_chunk == 0 and t > loss_chunk \
+            and cfg.mesh is None:
+        x = model(inputs, return_hidden=True)
+        return chunked_xent(x, model.wte.to(cfg.dtype), targets, loss_chunk)
+    logits = model(inputs)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def gpt2_partition_rules():
+    raise NotImplementedError(
+        "GPT-2 partition rules arrive with the parallelism slice of the "
+        "port")
+
+
+def gpt2_param_axes(path: str, leaf):
+    raise NotImplementedError(
+        "GPT-2 logical parameter axes arrive with the parallelism slice "
+        "of the port")

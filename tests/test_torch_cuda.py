@@ -1,0 +1,98 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` (the kernels are
+built from ``ray_tpu_torch/csrc`` at first use), carries the ``cuda``
+marker and skips without a card.  This file imports no JAX, so it runs
+on the GPU machine too, where the suite's conftest (which sets JAX up)
+is left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: the kernel's error against the float32 plain version stays
+within twice the bf16 plain version's error plus 2^-8 of the peak.
+"""
+
+import pytest
+import torch
+
+from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss_fn
+from ray_tpu_torch.ops import _kernels
+from ray_tpu_torch.ops import flash_attention as attention
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's CUDA kernels)")
+    return torch.device("cuda")
+
+
+def _close(got, plain, ref):
+    err_k = float((got.float() - ref.float()).abs().max())
+    err_p = float((plain.float() - ref.float()).abs().max())
+    assert err_k <= 2 * err_p + 2.0 ** -8 * float(ref.abs().max())
+
+
+def _qkv(device, b=2, t=256, h=4, d=64, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((b, t, h, d), generator=gen, device=device)
+            .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain_on_card(card, causal):
+    """Forward and all three gradients through the autograd Function:
+    the card (kernels) against the CPU (plain versions), same inputs."""
+    q, k, v = _qkv(card)
+    out = attention(q, k, v, causal=causal, block_q=128, block_k=128)
+    out.float().square().sum().backward()
+    got = [out, q.grad, k.grad, v.grad]
+
+    def run(dtype):
+        xs = [x.detach().cpu().to(dtype).requires_grad_() for x in (q, k, v)]
+        o = attention(*xs, causal=causal, block_q=128, block_k=128)
+        o.float().square().sum().backward()
+        return [o] + [x.grad for x in xs]
+
+    for g, p, r in zip(got, run(torch.bfloat16), run(torch.float32)):
+        _close(g.cpu(), p, r)
+
+
+def test_kernels_reject_what_they_do_not_take(card):
+    q = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16, device=card)
+    kw = dict(scale=0.125, causal=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        _kernels.flash_fwd(q.float(), q.float(), q.float(), **kw)
+    with pytest.raises(ValueError, match="head width"):
+        x = q[..., :32]
+        _kernels.flash_fwd(x, x, x, **kw)
+    with pytest.raises(ValueError, match="multiple"):
+        x = q[:, :96]
+        _kernels.flash_fwd(x, x, x, **kw)
+    with pytest.raises(ValueError, match="stride"):
+        x = q.transpose(1, 3)
+        _kernels.flash_fwd(x, x, x, **kw)
+
+
+def test_gpt2_flash_step_on_card_matches_cpu(card):
+    """A small bf16 GPT-2 (d_head 64): loss and gradient norm of the flash
+    model on the card agree with the same weights on the CPU."""
+    cfg = GPT2Config(vocab_size=512, n_layer=2, n_head=2, d_model=128,
+                     d_ff=256, max_seq=128, attn_impl="flash")
+    model = gpt2_init(cfg, torch.Generator(device=card).manual_seed(0),
+                      device=card)
+    cpu = gpt2_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, 512, (2, 129), device=card)
+    before = _kernels.launches["flash_dkv"]
+    losses, norms = [], []
+    for m, toks in ((model, tokens), (cpu, tokens.cpu())):
+        loss = gpt2_loss_fn(cfg, m, {"tokens": toks}, loss_chunk=64)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        losses.append(float(loss))
+        norms.append(float(torch.stack([g.norm() for g in grads]).norm()))
+    assert _kernels.launches["flash_dkv"] == before + cfg.n_layer
+    assert abs(losses[0] - losses[1]) < 1e-2
+    assert abs(norms[0] - norms[1]) < 1e-2 * norms[1]

@@ -1,0 +1,100 @@
+"""The port stands alone: no JAX and nothing of the JAX package.
+
+``ray_tpu_torch`` and ``chip_smoke.py`` import ``torch`` and numpy, never
+``jax``/``flax``/``optax`` nor ``ray_tpu`` (a name that ``ray_tpu_torch``
+itself starts with, so the check matches whole dotted prefixes).  Entry
+points called without a device run on CUDA or raise.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "ray_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_forbidden_matches_whole_prefixes():
+    assert _forbidden("ray_tpu") and _forbidden("ray_tpu.ops.moe")
+    assert _forbidden("jax.numpy") and _forbidden("optax")
+    assert not _forbidden("ray_tpu_torch") and not _forbidden("jaxtyping")
+
+
+@pytest.mark.parametrize("target", ["ray_tpu_torch", "chip_smoke.py"])
+def test_sources_import_nothing_of_jax_or_ray_tpu(target):
+    files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
+        else [ROOT / target]
+    assert files
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imports(f) if _forbidden(m)]
+    assert bad == []
+
+
+def test_import_adds_no_jax_or_ray_tpu_module():
+    """Checked as a delta in a fresh interpreter: the image may preload
+    jax before any test code runs."""
+    code = (
+        "import sys\n"
+        f"bad = lambda: {{m for m in sys.modules if any(m == f or "
+        f"m.startswith(f + '.') for f in {FORBIDDEN!r})}}\n"
+        "before = bad()\n"
+        "import ray_tpu_torch, ray_tpu_torch.device\n"
+        "import ray_tpu_torch.ops, ray_tpu_torch.ops.flash_attention\n"
+        "import ray_tpu_torch.models.gpt2, ray_tpu_torch.models.convert\n"
+        "import ray_tpu_torch.train.train_step\n"
+        "print(sorted(bad() - before))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_no_device_means_cuda_or_raise(monkeypatch):
+    from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_init
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    cfg = GPT2Config.tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GPT2(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpt2_init(cfg)
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+
+
+def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch,
+                                                         tmp_path):
+    from ray_tpu_torch.ops import _kernels
+
+    assert _kernels.source_hash() == _kernels.source_hash()
+    assert _kernels.build_dir().parent == PKG / "_build"
+    assert "ray_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _kernels._nvcc()
