@@ -5,11 +5,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--profile]
 
-It builds the hand-written CUDA kernels from ``ray_tpu_torch/csrc/``,
-holds each against its plain PyTorch version at the GPT-2 pretraining
-shape, then drives the main path (GPT-2 124M training steps, flash
-attention, remat, chunked cross entropy, clip + AdamW) and checks that
-every step went through the kernels.  Any failure exits non-zero; with
+It builds the hand-written CUDA kernels from ``ray_tpu_torch/csrc/``
+(one ``nvcc`` per source, in parallel), holds each against its plain
+PyTorch version at small shapes (T = 64 and 320 leave partial 128-row
+tiles) and at the GPT-2 pretraining shape, then drives the main path
+(GPT-2 124M training steps, flash attention, remat, chunked cross
+entropy, clip + AdamW) and checks that every step went through the
+kernels.  Any failure exits non-zero; with
 no CUDA device it exits 1 before doing anything.
 
 Output, last lines: the card's name and power limit (``nvidia-smi``),
@@ -30,7 +32,11 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
-SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
+SOURCES = {
+    "flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
+    "flash_dkv": "ray_tpu_torch/csrc/flash_dkv.cu",
+    "flash_dq": "ray_tpu_torch/csrc/flash_dq.cu",
+}
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/flash_attention.py:45",   # _fwd_kernel
     "flash_dkv": "ray_tpu/ops/flash_attention.py:128",  # _dkv_kernel
@@ -348,12 +354,17 @@ def main() -> int:
     libs = _kernels.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s -> "
           f"{[str(p.name) for p in libs.values()]}")
-    for lib in libs.values():
+    for name, lib in libs.items():
+        print(f"[build] {name}: dynamic shared memory "
+              f"{_kernels.dynamic_smem(name)} bytes a block; ptxas:")
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print("  " + line.strip())
 
-    print("[kernels] small non-causal case")
+    print("[kernels] small cases: partial 128-row tiles (T = 64, 320), "
+          "B*H = 6, and a non-causal T = 256")
+    for t, causal in ((64, True), (64, False), (320, True), (320, False)):
+        check_kernels(2, t, 3, 64, causal=causal, seed=3, timed=False)
     check_kernels(2, 256, 4, 64, causal=False, seed=1, timed=False)
     print("[kernels] main-path shape B16 T1024 H12 D64 bf16 causal")
     results = check_kernels(16, 1024, 12, 64, causal=True, seed=2,
@@ -362,7 +373,7 @@ def main() -> int:
     print("[main path] GPT-2 124M, B16 T1024, flash + remat, chunk 256")
     counts = main_path(card, profile="--profile" in sys.argv[1:])
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **results[name])
                for name in ("flash_fwd", "flash_dkv", "flash_dq")]

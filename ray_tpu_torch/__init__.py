@@ -8,9 +8,9 @@ nothing of ``ray_tpu``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (see ``device.py``).  On the card, attention runs
-through hand-written Hopper kernels (``csrc/flash_attention.cu``, built
-at first use by ``ops/_kernels.py``); on the CPU the same functions use
-their plain PyTorch versions.
+through hand-written Hopper kernels (``csrc/flash_{fwd,dkv,dq}.cu``,
+built at first use by ``ops/_kernels.py``); on the CPU the same
+functions use their plain PyTorch versions.
 
 The package import is kept light: submodules load on demand.
 """

@@ -1,15 +1,21 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-The sources under ``ray_tpu_torch/csrc/`` are compiled with ``nvcc`` for
-``sm_90a`` into shared libraries with a plain C interface (no PyTorch
-headers, so a build takes seconds) and loaded with ``ctypes``.  The build
+Each kernel has a source of its own under ``ray_tpu_torch/csrc/``
+(``flash_fwd.cu``, ``flash_dkv.cu``, ``flash_dq.cu``, sharing the headers
+``flash_common.cuh`` and ``sm90.cuh``).  Each is compiled with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds) and loaded with ``ctypes``.
+The forward and dK/dV kernels encode TMA tensor maps on the host through
+the driver's ``cuTensorMapEncodeTiled``, which they reach with
+``cudaGetDriverEntryPoint``: no ``-lcuda`` at link time.  The build
 happens at first use, into ``ray_tpu_torch/_build/<hash>/`` keyed by a
-hash of the sources and flags, so a checkout builds everything it runs
-from its own files.  All sources compile in parallel, one ``nvcc`` each.
+hash of every file under ``csrc/`` and the flags, so a checkout builds
+everything it runs from its own files.  All sources compile in parallel,
+one ``nvcc`` each.
 
 Each wrapper checks what its kernel takes and raises on anything else,
 allocates its outputs with ``torch.empty``, launches on the current
-stream, raises if ``cudaGetLastError()`` was not 0, and then counts the
+stream, raises if the launcher returned a CUDA error, and then counts the
 launch in ``launches``.  Wrappers only take CUDA tensors: the callers in
 ``flash_attention.py`` send CPU tensors to the plain versions instead.
 """
@@ -29,7 +35,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flash_attention.cu",)
+# One source per kernel; each exports the launcher named after its stem
+# and ``<stem>_smem()``, the dynamic shared memory of one block.
+SOURCES = ("flash_fwd.cu", "flash_dkv.cu", "flash_dq.cu")
+_SUFFIXES = (".cu", ".cuh", ".h")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -47,10 +56,12 @@ def reset_launches() -> None:
 
 
 def source_hash() -> str:
+    """Hash of the flags and of every source and header under ``CSRC``,
+    so an edit to a header rebuilds every kernel."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.suffix in _SUFFIXES):
+        h.update(str(path.relative_to(CSRC)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -103,7 +114,7 @@ def build() -> dict:
 
 
 _lock = threading.Lock()
-_lib = None
+_fns = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -119,17 +130,29 @@ _SIGNATURES = {
 }
 
 
-def library() -> ctypes.CDLL:
-    global _lib
+def library() -> dict:
+    """{launcher name: its ctypes function}, from one library per source."""
+    global _fns
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()["flash_attention"]))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
+        if _fns is None:
+            fns = {}
+            for stem, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                fn = getattr(lib, stem)
+                fn.argtypes = _SIGNATURES[stem]
                 fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+                fns[stem] = fn
+                smem = getattr(lib, stem + "_smem")
+                smem.argtypes = []
+                smem.restype = ctypes.c_int
+                fns[stem + "_smem"] = smem
+            _fns = fns
+    return _fns
+
+
+def dynamic_smem(name: str) -> int:
+    """Dynamic shared memory of one block of kernel ``name``, in bytes."""
+    return library()[name + "_smem"]()
 
 
 # ----------------------------------------------------------- checks
@@ -162,9 +185,11 @@ def _check_rows(name: str, ref: torch.Tensor, *rows: torch.Tensor) -> None:
     b, t, h, _d = ref.shape
     for x in rows:
         if x.device != ref.device or x.dtype != torch.float32 \
-                or x.shape != (b, h, t) or not x.is_contiguous():
-            raise ValueError(f"{name}: lse/delta must be contiguous "
-                             f"float32 [B, H, T] = {(b, h, t)} on "
+                or x.shape != (b, h, t) or not x.is_contiguous() \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name}: lse/delta must be contiguous, "
+                             f"16-byte aligned float32 [B, H, T] = "
+                             f"{(b, h, t)} on "
                              f"{ref.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
 
@@ -193,12 +218,11 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool):
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    lib = library()
     with torch.cuda.device(q.device):
-        rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(),
-                           _strides(q, k, v, out), b, h, t, int(causal),
-                           scale, _stream(q))
+        fn = library()["flash_fwd"]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), _strides(q, k, v, out), b, h, t, int(causal),
+                scale, _stream(q))
     _launched("flash_fwd", rc)
     return out, lse
 
@@ -210,13 +234,12 @@ def flash_dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     b, t, h, _d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib = library()
     with torch.cuda.device(q.device):
-        rc = lib.flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           dk.data_ptr(), dv.data_ptr(),
-                           _strides(q, k, v, do, dk, dv), b, h, t,
-                           int(causal), scale, _stream(q))
+        fn = library()["flash_dkv"]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _strides(q, k, v, do, dk, dv), b, h, t, int(causal), scale,
+                _stream(q))
     _launched("flash_dkv", rc)
     return dk, dv
 
@@ -227,11 +250,11 @@ def flash_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool):
     _check_rows("flash_dq", q, lse, delta)
     b, t, h, _d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = library()
     with torch.cuda.device(q.device):
-        rc = lib.flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          dq.data_ptr(), _strides(q, k, v, do, dq), b, h, t,
-                          int(causal), scale, _stream(q))
+        fn = library()["flash_dq"]
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                _strides(q, k, v, do, dq), b, h, t, int(causal), scale,
+                _stream(q))
     _launched("flash_dq", rc)
     return dq

@@ -14,15 +14,17 @@ package's two ``custom_vjp``s).
 
 Each of the three steps has two versions with one signature:
 
-- a kernel in ``csrc/flash_attention.cu`` (wrappers in ``_kernels``),
-  taken for every CUDA tensor, with no fallback;
+- a kernel in ``csrc/flash_fwd.cu``, ``csrc/flash_dkv.cu`` or
+  ``csrc/flash_dq.cu`` (wrappers in ``_kernels``), taken for every CUDA
+  tensor, with no fallback;
 - a plain PyTorch version (``flash_fwd_plain``, ``flash_dkv_plain``,
   ``flash_dq_plain``) taken for every CPU tensor.  It loops over the
   same (q-block, kv-block) pairs with the same recurrence and casts as
   the Pallas kernels, and takes the place of Pallas ``interpret=True``.
 
 On the card ``block_q``/``block_k`` only validate T: the CUDA kernels
-use their own 64-row tiles (``_kernels.TILE``).
+use their own tiles (128 and 64 rows) and take every T that is a
+multiple of ``_kernels.TILE`` (64).
 """
 
 from __future__ import annotations

@@ -41,18 +41,21 @@ def _qkv(device, b=2, t=256, h=4, d=64, seed=0):
             .to(torch.bfloat16).requires_grad_() for _ in range(3)]
 
 
+@pytest.mark.parametrize("t", [64, 256, 320])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_matches_plain_on_card(card, causal):
+def test_flash_attention_matches_plain_on_card(card, causal, t):
     """Forward and all three gradients through the autograd Function:
-    the card (kernels) against the CPU (plain versions), same inputs."""
-    q, k, v = _qkv(card)
-    out = attention(q, k, v, causal=causal, block_q=128, block_k=128)
+    the card (kernels) against the CPU (plain versions), same inputs.
+    T = 64 and 320 leave a partial 128-row tile in the kernels."""
+    q, k, v = _qkv(card, t=t)
+    blk = 128 if t % 128 == 0 else 64
+    out = attention(q, k, v, causal=causal, block_q=blk, block_k=blk)
     out.float().square().sum().backward()
     got = [out, q.grad, k.grad, v.grad]
 
     def run(dtype):
         xs = [x.detach().cpu().to(dtype).requires_grad_() for x in (q, k, v)]
-        o = attention(*xs, causal=causal, block_q=128, block_k=128)
+        o = attention(*xs, causal=causal, block_q=blk, block_k=blk)
         o.float().square().sum().backward()
         return [o] + [x.grad for x in xs]
 

@@ -8,6 +8,7 @@ points called without a device run on CUDA or raise.
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -98,3 +99,22 @@ def test_kernel_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch,
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _kernels._nvcc()
+
+
+def test_kernel_hash_covers_every_source_and_header(monkeypatch, tmp_path):
+    """Editing any file under csrc/ (a kernel source or a header shared by
+    several kernels) changes the build hash, so no stale library loads."""
+    from ray_tpu_torch.ops import _kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PKG / "csrc", csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers and all((csrc / s).exists() for s in _kernels.SOURCES)
+    seen = {_kernels.source_hash()}
+    for path in [*headers, csrc / _kernels.SOURCES[0]]:
+        path.write_text(path.read_text() + "\n// edited\n")
+        seen.add(_kernels.source_hash())
+    (csrc / "extra.h").write_text("#pragma once\n")
+    seen.add(_kernels.source_hash())
+    assert len(seen) == len(headers) + 3
