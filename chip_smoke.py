@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the hand-written CUDA kernels from ``ray_tpu_torch/csrc/``
 (one ``nvcc`` per source, in parallel), holds each against its plain
 PyTorch version at small shapes (T = 64 and 320 leave partial 128-row
-tiles) and at the GPT-2 pretraining shape, then drives the main path
+tiles; B*H = 144 gives the persistent blocks several rounds) and at the
+GPT-2 pretraining shape, then drives the main path
 (GPT-2 124M training steps, flash attention, remat, chunked cross
 entropy, clip + AdamW) and checks that every step went through the
 kernels.  Any failure exits non-zero; with
@@ -91,14 +92,26 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def attention_inputs(b, t, h, d, seed):
+    """Random bf16 q, k, v, dO on the card: q, k, v are column slices of
+    one [B, T, 3*H*D] tensor, the layout the model hands the kernels."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda"
+                      ).to(torch.bfloat16)
+    q, k, v = (z.unflatten(-1, (h, d)) for z in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+    return q, k, v, do
+
+
 def check_kernels(b, t, h, d, causal, seed, timed):
-    """Each kernel against its plain version on the same bf16 inputs.
-    Both are judged against the plain version run in float32 on the
-    same (upcast) inputs: the kernel's error must stay within twice the
-    bf16 plain version's error plus 2^-8 of the reference's peak (1e-5
-    for the fp32 lse).
-    q, k, v are column slices of one [B, T, 3*H*D] tensor, the layout
-    the model hands the kernels."""
+    """Each kernel against its plain version on the same bf16 inputs
+    (``attention_inputs``).  Both are judged against the plain version
+    run in float32 on the same (upcast) inputs: the kernel's error must
+    stay within twice the bf16 plain version's error plus 2^-8 of the
+    reference's peak (1e-5 for the fp32 lse)."""
     import torch
     import torch.nn.functional as F
 
@@ -107,12 +120,7 @@ def check_kernels(b, t, h, d, causal, seed, timed):
                                                    flash_dq_plain,
                                                    flash_fwd_plain)
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda"
-                      ).to(torch.bfloat16)
-    q, k, v = (z.unflatten(-1, (h, d)) for z in qkv.split(h * d, dim=-1))
-    do = torch.randn((b, t, h, d), generator=gen, device="cuda"
-                     ).to(torch.bfloat16)
+    q, k, v, do = attention_inputs(b, t, h, d, seed)
     f32 = [x.float() for x in (q, k, v, do)]
     scale = d ** -0.5
     # The model's call: whole-sequence blocks, clamped to T.
@@ -366,6 +374,9 @@ def main() -> int:
     for t, causal in ((64, True), (64, False), (320, True), (320, False)):
         check_kernels(2, t, 3, 64, causal=causal, seed=3, timed=False)
     check_kernels(2, 256, 4, 64, causal=False, seed=1, timed=False)
+    print("[kernels] B*H = 144 (more items per q block than the 132 SMs: "
+          "several persistent rounds), T = 320 (last item half past T)")
+    check_kernels(12, 320, 12, 64, causal=True, seed=4, timed=False)
     print("[kernels] main-path shape B16 T1024 H12 D64 bf16 causal")
     results = check_kernels(16, 1024, 12, 64, causal=True, seed=2,
                             timed=True)

@@ -5,8 +5,8 @@ Each kernel has a source of its own under ``ray_tpu_torch/csrc/``
 ``flash_common.cuh`` and ``sm90.cuh``).  Each is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds) and loaded with ``ctypes``.
-The forward and dK/dV kernels encode TMA tensor maps on the host through
-the driver's ``cuTensorMapEncodeTiled``, which they reach with
+All three launchers encode TMA tensor maps on the host through
+``cuTensorMapEncodeTiled``, which they reach with
 ``cudaGetDriverEntryPoint``: no ``-lcuda`` at link time.  The build
 happens at first use, into ``ray_tpu_torch/_build/<hash>/`` keyed by a
 hash of every file under ``csrc/`` and the flags, so a checkout builds

@@ -23,8 +23,9 @@ Each of the three steps has two versions with one signature:
   the Pallas kernels, and takes the place of Pallas ``interpret=True``.
 
 On the card ``block_q``/``block_k`` only validate T: the CUDA kernels
-use their own tiles (128 and 64 rows) and take every T that is a
-multiple of ``_kernels.TILE`` (64).
+use their own tiles (work items of 128 rows, ring stages of 128 kv rows
+in the forward and dQ kernels and of 64 q rows in the dK/dV kernel) and
+take every T that is a multiple of ``_kernels.TILE`` (64).
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ import torch
 from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss_fn
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as attention
+from ray_tpu_torch.ops import flash_attention_with_lse as attention_with_lse
+from ray_tpu_torch.ops.flash_attention import flash_dq_plain, flash_fwd_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +62,72 @@ def test_flash_attention_matches_plain_on_card(card, causal, t):
         return [o] + [x.grad for x in xs]
 
     for g, p, r in zip(got, run(torch.bfloat16), run(torch.float32)):
+        _close(g.cpu(), p, r)
+
+
+def _backward_inputs(device, b, t, h, causal, d=64, seed=0):
+    """The dQ kernel's inputs: q, k, v as column slices of one qkv tensor
+    (the model's layout), dO, and lse and delta from the float32 plain
+    forward; with the plain versions' keyword arguments."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=device
+                      ).to(torch.bfloat16)
+    q, k, v = (z.unflatten(-1, (h, d)) for z in qkv.split(h * d, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen, device=device
+                     ).to(torch.bfloat16)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=64, block_k=64)
+    o, lse = flash_fwd_plain(q.float(), k.float(), v.float(), **kw)
+    delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, do, lse, delta), kw
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_kernel_many_heads_partial_items(card, causal):
+    """B*H = 144 work items per q block, more than the card's 132 SMs, so
+    the persistent blocks take several rounds; T = 320 leaves a last
+    128-row item half past T, whose lse/delta reads must stop at T."""
+    (q, k, v, do, lse, delta), kw = _backward_inputs(card, 12, 320, 12,
+                                                     causal)
+    got = _kernels.flash_dq(q, k, v, do, lse, delta, scale=kw["scale"],
+                            causal=causal)
+    plain = flash_dq_plain(q, k, v, do, lse, delta, **kw)
+    ref = flash_dq_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                         delta, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    _close(got, plain, ref)
+
+
+def test_dq_kernel_is_deterministic(card):
+    """Each block writes only its own rows (no atomics): two calls give
+    bit-identical dQ."""
+    (q, k, v, do, lse, delta), kw = _backward_inputs(card, 12, 320, 12, True)
+    runs = [_kernels.flash_dq(q, k, v, do, lse, delta, scale=kw["scale"],
+                              causal=True) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_flash_attention_with_lse_cotangent_on_card_matches_plain(card):
+    """A non-zero lse cotangent folds into delta before the backward
+    kernels: the card (kernels) against the CPU (plain versions)."""
+    q, k, v = _qkv(card, t=320, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    w = torch.randn((2, 320, 4), generator=gen)
+
+    def run(xs):
+        o, lse = attention_with_lse(*xs, causal=True, block_q=64,
+                                    block_k=64)
+        (o.float().square().sum()
+         + (lse * w.to(lse.device)).sum()).backward()
+        return [o, lse] + [x.grad for x in xs]
+
+    got = run([q, k, v])
+
+    def cpu(dtype):
+        return run([x.detach().cpu().to(dtype).requires_grad_()
+                    for x in (q, k, v)])
+
+    for g, p, r in zip(got, cpu(torch.bfloat16), cpu(torch.float32)):
         _close(g.cpu(), p, r)
 
 

@@ -41,7 +41,8 @@ def test_forbidden_matches_whole_prefixes():
     assert not _forbidden("ray_tpu_torch") and not _forbidden("jaxtyping")
 
 
-@pytest.mark.parametrize("target", ["ray_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("target", ["ray_tpu_torch", "chip_smoke.py",
+                                    "bench_dq_tiles.py"])
 def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
         else [ROOT / target]
