@@ -23,7 +23,7 @@
 //     [B, T, H, 64] views, with the 128-byte swizzle that wgmma reads
 //     without bank conflicts.  The Q and dO tiles of an item are loaded
 //     once (two buffers each, for this item and the next); K and V tiles
-//     of BN rows go through a ring of STAGES stages, each with its own
+//     of 128 rows go through a ring of 3 stages, each with its own
 //     full barriers (K and V apart, so S = Q K^T starts before V lands)
 //     and an empty barrier both consumer warpgroups release.
 //   - Per stage and warpgroup, all products on wgmma: S = Q K^T and
@@ -39,11 +39,10 @@
 //     stored once, times scale, for rows < T.  Each block writes only its
 //     own rows: no atomics, deterministic.
 //   - Causal: a warpgroup only visits the keys up to its last row.  Its
-//     diagonal tile is masked; with 128-row stages the first warpgroup
-//     runs the diagonal at half width (m64n64), with 64-row stages it
-//     skips the diagonal's second stage.  A warpgroup that skips a stage
-//     still waits for it to land and releases it, so the ring never
-//     deadlocks.
+//     diagonal tile is masked, and the first warpgroup runs it at half
+//     width (m64n64), as the forward does.  A warpgroup that needs nothing
+//     of a stage still waits for it to land and releases it, so the ring
+//     never deadlocks.
 //   - Numerics as the Pallas kernel: fp32 scores scaled after the product,
 //     masked probabilities exactly 0, dS cast to bf16 before dS K, fp32
 //     accumulation and one cast to bf16 at the store.
@@ -59,30 +58,19 @@
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
-// kv rows of a ring stage (64 or 128) and the ring's depth.  The defaults
-// were the fastest on an H100 at the GPT-2 shape; bench_dq_tiles.py builds
-// other values (-DDQ_BN=64 -DDQ_STAGES=4) to compare them.
-#ifndef DQ_BN
-#define DQ_BN 128
-#endif
-#ifndef DQ_STAGES
-#define DQ_STAGES 3
-#endif
-
 namespace {
 
 using namespace flash;
 using namespace sm90;
 
 constexpr int BM = 128;                   // q rows of a work item
-constexpr int BN = DQ_BN;
-constexpr int STAGES = DQ_STAGES;
+constexpr int BN = 128;                   // kv rows of a ring stage
+constexpr int STAGES = 3;                 // depth of the K/V ring
 constexpr int THREADS = 384;              // 2 consumer + 1 producer warpgroup
 constexpr int Q_BYTES = BM * D * 2;
 constexpr int KV_BYTES = BN * D * 2;
 // Two Q buffers, two dO buffers, then the K stages, then the V stages.
 constexpr int SMEM_BYTES = 4 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
-static_assert(BN == 64 || BN == 128, "a stage is 64 or 128 kv rows");
 
 struct Params {
   const float *lse, *delta;
@@ -278,7 +266,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int nkeys = width < BN ? width : BN;
         const bool masked = (p.causal && j * BN + nkeys - 1 > r0) ||
                             j * BN + nkeys > p.T;
-        if (BN == 128 && nkeys == 64)
+        // Half width: the first group's diagonal, or the last 64 keys
+        // when T % 128 = 64.
+        if (nkeys == 64)
           dq_tile<64>(dq, qdesc, dodesc, ks(s), vs(s), &k_full[s],
                       &v_full[s], phase, masked, j * BN, row0, lane, lse2,
                       delta, p);

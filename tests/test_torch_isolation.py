@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-``ray_tpu_torch`` and ``chip_smoke.py`` import ``torch`` and numpy, never
-``jax``/``flax``/``optax`` nor ``ray_tpu`` (a name that ``ray_tpu_torch``
-itself starts with, so the check matches whole dotted prefixes).  Entry
+``ray_tpu_torch``, ``chip_smoke.py`` and the card tests (run where JAX is
+not installed) import ``torch`` and numpy, never ``jax``/``flax``/``optax``
+nor ``ray_tpu`` (a name that ``ray_tpu_torch`` itself starts with, so the
+check matches whole dotted prefixes).  Entry
 points called without a device run on CUDA or raise.
 """
 
@@ -42,7 +43,7 @@ def test_forbidden_matches_whole_prefixes():
 
 
 @pytest.mark.parametrize("target", ["ray_tpu_torch", "chip_smoke.py",
-                                    "bench_dq_tiles.py"])
+                                    "tests/test_torch_cuda.py"])
 def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
         else [ROOT / target]
