@@ -12,26 +12,58 @@ tiles; B*H = 144 gives the persistent blocks several rounds) and at the
 GPT-2 pretraining shape, then drives the main path
 (GPT-2 124M training steps, flash attention, remat, chunked cross
 entropy, clip + AdamW) and checks that every step went through the
-kernels.  Any failure exits non-zero; with
-no CUDA device it exits 1 before doing anything.
+kernels.
 
-Output, last lines: the card's name and power limit (``nvidia-smi``),
-one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-main path, error against its plain version, times and bound, and last
-``{"ok": true, "device": {...}}``.  ``--profile`` adds a device-time
-breakdown of two more steps (see ``profile_steps``).
+Then the serving path (``ray_tpu_torch.llm``: the continuous-batching
+engine over the paged KV cache, plain PyTorch, no kernel of its own)
+runs in three phases, each through ``LLMDeployment.__call__`` after the
+engine's warmup, with ``bench.py --serve-llm``'s engine configuration
+(page 16, 256 pages, batch 8, prefill budget 512):
+
+- ``[serve] GPT-2 124M``: bf16, random weights from seed 0, 8 client
+  threads with 4 requests each, prompts of 16 tokens, 32 greedy tokens
+  per request.  Every request must end with 32 tokens and reason
+  "length", no error frame, no step error, every page free at the end,
+  and each greedy token of two requests within 0.1 of the top logit of
+  the non-cached forward on the same weights.
+- ``[serve] GPT-2 124M float32``: two requests of 8 tokens whose tokens
+  must equal the non-cached full forward's greedy tokens.
+- ``[serve] Llama-2-7B widths``: Meta's Llama 2 7B widths at full depth
+  (bf16, random weights), the first phase's load and checks.
+
+The two bf16 phases print tokens/s, TTFT and TPOT percentiles, decode
+MFU, peak device memory, the engine's stats and one batch-8 decode
+forward's host time, CUDA-event time and kernel breakdown
+(``torch.profiler``); the float32 phase, too small a load for such
+numbers, prints its checks and the engine's stats.  Any
+failure exits non-zero; with no CUDA device it exits 1 before doing
+anything.
+
+Output, last lines: one JSON line ``{"kernels": [...]}`` with each
+kernel's launches on the main path, error against its plain version,
+times and bound; one JSON line ``{"serving": [...]}`` with each serve
+phase's numbers; the card's name and power limit (``nvidia-smi``); and
+last ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
+device-time breakdown of two more training steps (see
+``profile_steps``).
 """
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM data sheet, dense: bf16 tensor-core rate and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+
+# GPT-2 124M at its published widths (OpenAI GPT-2 small).
+GPT2_124M = dict(n_layer=12, n_head=12, d_model=768, d_ff=3072,
+                 vocab_size=50257, max_seq=1024)
 
 SOURCES = {
     "flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
@@ -192,11 +224,15 @@ def check_kernels(b, t, h, d, causal, seed, timed):
     return results
 
 
-def profile_steps(step, state, data, n: int = 2) -> None:
-    """--profile: device time by kernel over ``n`` more steps, from
-    ``torch.profiler``, grouped into the attention kernels, matrix
-    products, the optimizer's multi-tensor kernels and the rest, and the
-    device's busy share of the window (host clock)."""
+MATMUL_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+
+def device_profile(fn, n: int):
+    """Run ``fn`` ``n`` times under ``torch.profiler``; returns the
+    device time and launches by kernel name ({name: [us, count]}), the
+    device's busy time (union of the kernel intervals) and the wall time
+    on the host clock, both in us.  None when the profiler traced no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -206,7 +242,7 @@ def profile_steps(step, state, data, n: int = 2) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(state, data)
+            fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name, spans = {}, []
@@ -219,25 +255,43 @@ def profile_steps(step, state, data, n: int = 2) -> None:
         row[1] += 1
         spans.append((e.time_range.start, e.time_range.end))
     if not spans:
-        print("  profile: the profiler traced no device time")
-        return
+        return None
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):          # union of the device intervals
         if b > end:
             busy += b - max(a, end)
             end = b
-    groups = {"flash attention kernels": ("fwd_kernel", "dkv_kernel",
-                                          "dq_kernel"),
-              "matrix products (cuBLAS)": ("gemm", "xmma", "nvjet",
-                                           "cutlass", "cublas"),
-              "optimizer (multi-tensor)": ("multi_tensor_apply",)}
-    sums = {g: 0.0 for g in list(groups) + ["elementwise, reductions, "
-                                             "copies"]}
+    return by_name, busy, wall_us
+
+
+def group_kernels(by_name, groups, rest: str):
+    """Device us by group: a kernel joins the first group one of whose
+    keys its name contains, else ``rest``."""
+    sums = {g: 0.0 for g in list(groups) + [rest]}
     for name, (us, _count) in by_name.items():
         group = next((g for g, keys in groups.items()
-                      if any(k in name for k in keys)),
-                     "elementwise, reductions, copies")
+                      if any(k in name for k in keys)), rest)
         sums[group] += us
+    return sums
+
+
+def profile_steps(step, state, data, n: int = 2) -> None:
+    """--profile: device time by kernel over ``n`` more steps, from
+    ``torch.profiler``, grouped into the attention kernels, matrix
+    products, the optimizer's multi-tensor kernels and the rest, and the
+    device's busy share of the window (host clock)."""
+    prof = device_profile(lambda: step(state, data), n)
+    if prof is None:
+        print("  profile: the profiler traced no device time")
+        return
+    by_name, busy, wall_us = prof
+    sums = group_kernels(
+        by_name,
+        {"flash attention kernels": ("fwd_kernel", "dkv_kernel",
+                                     "dq_kernel"),
+         "matrix products (cuBLAS)": MATMUL_KERNELS,
+         "optimizer (multi-tensor)": ("multi_tensor_apply",)},
+        "elementwise, reductions, copies")
     total = sum(sums.values())
     print(f"  profile of {n} steps: device busy {busy / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({busy / wall_us:.4f}); kernel "
@@ -262,9 +316,7 @@ def main_path(card: str, profile: bool = False):
     from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
                                                 make_train_step)
 
-    cfg = GPT2Config(n_layer=12, n_head=12, d_model=768, d_ff=3072,
-                     vocab_size=50257, max_seq=1024, remat=True,
-                     attn_impl="flash")
+    cfg = GPT2Config(**GPT2_124M, remat=True, attn_impl="flash")
     batch, warm, steps = 16, 1, 10
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = gpt2_init(cfg, gen, device="cuda")
@@ -340,6 +392,343 @@ def main_path(card: str, profile: bool = False):
     return counts
 
 
+# bench.py --serve-llm's engine configuration.
+SERVE_ENGINE = dict(page_size=16, num_pages=256, max_batch=8,
+                    prefill_token_budget=512)
+
+
+def serve_requests(dep, prompts, max_tokens: int, clients: int):
+    """``bench.py --serve-llm``'s client loop without the serve plane:
+    ``clients`` threads, each sending its share of ``prompts`` one after
+    another through ``LLMDeployment.__call__`` and reading every frame.
+    Returns each request's frames, TTFT and inter-token gaps (seconds,
+    host clock) and the wall time of the whole load."""
+    per = len(prompts) // clients
+    results = [None] * len(prompts)
+
+    def client(c: int) -> None:
+        for i in range(c * per, (c + 1) * per):
+            t0 = time.perf_counter()
+            frames, stamps = [], []
+            for fr in dep({"prompt": prompts[i], "max_tokens": max_tokens}):
+                frames.append(fr)
+                if "token" in fr:
+                    stamps.append(time.perf_counter())
+            results[i] = {"frames": frames,
+                          "ttft": stamps[0] - t0 if stamps else None,
+                          "gaps": [b - a for a, b in zip(stamps, stamps[1:])]}
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise RuntimeError("serve clients still running after 600 s")
+    return results, wall
+
+
+def check_requests(results, max_tokens: int):
+    """Every request ended with ``max_tokens`` tokens and reason
+    "length", with no error frame.  Returns each request's tokens."""
+    done = {"done": True, "reason": "length", "n_tokens": max_tokens}
+    tokens = []
+    for i, r in enumerate(results):
+        if r is None:
+            raise RuntimeError(f"request {i} got no result (client failed)")
+        errors = [f for f in r["frames"] if "error" in f]
+        toks = [f["token"] for f in r["frames"] if "token" in f]
+        if errors or r["frames"][-1] != done or len(toks) != max_tokens:
+            raise RuntimeError(f"request {i}: {len(toks)} tokens, last "
+                               f"frame {r['frames'][-1]}, errors {errors}")
+        tokens.append(toks)
+    return tokens
+
+
+def percentiles_ms(xs):
+    import numpy as np
+
+    ms = np.asarray(xs, np.float64) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def serve_load(model_cfg, clients: int, per_client: int, prompt_len: int,
+               max_tokens: int):
+    """Build an ``LLMDeployment`` (seed 0; its engine warms up in the
+    background), wait for it, warm the request path with one request
+    kept out of the accounting, then run the load and check it.
+    Returns the load's record, each request's tokens and the prompts."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm import EngineConfig, LLMDeployment
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model_cfg.vocab_size, prompt_len).tolist()
+               for _ in range(clients * per_client)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dep = LLMDeployment(model_cfg=model_cfg,
+                        engine_cfg=EngineConfig(**SERVE_ENGINE), seed=0)
+    try:
+        dep.stats()                       # waits for build + warmup
+        ready_s = time.perf_counter() - t0
+        list(dep({"prompt": prompts[0], "max_tokens": 4, "warmup": True}))
+        results, wall = serve_requests(dep, prompts, max_tokens, clients)
+        stats = dep.stats()
+    finally:
+        dep.stop()
+    tokens = check_requests(results, max_tokens)
+    if stats["step_errors"] != 0 or stats["kv_pages_used"] != 0:
+        raise RuntimeError(f"engine stats after the load: {stats}")
+    print(f"  {len(results)} requests ({clients} clients x {per_client}), "
+          f"prompts {prompt_len}, {max_tokens} tokens each: every request "
+          f"ended \"length\" with {max_tokens} tokens, no error frame, no "
+          f"step error, every page free; engine built and warmed in "
+          f"{ready_s:.1f} s")
+    print(f"  engine stats: {json.dumps(stats)}")
+    load = {"results": results, "wall": wall, "stats": stats,
+            "ready_s": ready_s, "prompt_len": prompt_len,
+            "max_tokens": max_tokens,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return load, tokens, prompts
+
+
+def load_numbers(model_cfg, load, card: str):
+    """The serving numbers of a load (``serve_load``): tokens/s, TTFT and
+    TPOT percentiles, decode MFU and peak device memory."""
+    results = load["results"]
+    n_tok = len(results) * load["max_tokens"]
+    ttft = percentiles_ms([r["ttft"] for r in results])
+    tpot = percentiles_ms([g for r in results for g in r["gaps"]])
+    tok_s = n_tok / load["wall"]
+    mfu = tok_s * model_cfg.decode_flops_per_token(
+        load["prompt_len"] + load["max_tokens"] // 2) / PEAK_BF16_FLOPS
+    out = {"requests": len(results), "tokens": n_tok,
+           "tokens_per_s": tok_s, "ttft_p50_ms": ttft[0],
+           "ttft_p99_ms": ttft[1], "tpot_p50_ms": tpot[0],
+           "tpot_p99_ms": tpot[1], "decode_mfu": mfu,
+           "peak_memory_gib": load["peak_memory_gib"],
+           "ready_s": load["ready_s"], "engine_steps": load["stats"]["steps"],
+           "evictions": load["stats"]["evictions"]}
+    print(f"  {n_tok} tokens in {load['wall']:.3f} s, {tok_s:.1f} tokens/s; "
+          f"TTFT p50 {ttft[0]:.2f} ms p99 {ttft[1]:.2f} ms; TPOT p50 "
+          f"{tpot[0]:.2f} ms p99 {tpot[1]:.2f} ms; decode MFU {mfu:.6f} of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 (card: {card}); peak "
+          f"memory {out['peak_memory_gib']:.2f} GiB")
+    return out
+
+
+def check_logit_gaps(model, prompts, tokens):
+    """Each greedy token of the first and the last request against the
+    non-cached bf16 forward on the engine's weights: its logit must be
+    within 0.1 of that forward's top logit.  A broken cache gives gaps
+    of the order of the logits' spread (their standard deviation over
+    the vocabulary, printed beside the gap).  Returns the largest gap and
+    the spread."""
+    import torch
+
+    gaps, spreads = [], []
+    with torch.no_grad():
+        for i in (0, len(prompts) - 1):
+            seq = torch.tensor([prompts[i] + tokens[i][:-1]], device="cuda")
+            logits = model(seq)[0, len(prompts[i]) - 1:]
+            got = logits.gather(-1, torch.tensor(tokens[i], device="cuda"
+                                                 )[:, None])[:, 0]
+            gaps.append(float((logits.max(-1).values - got).max()))
+            spreads.append(float(logits.std(-1).mean()))
+    print(f"  greedy tokens of requests 0 and {len(prompts) - 1} against the "
+          f"non-cached bf16 forward: largest gap to the top logit "
+          f"{max(gaps):.6f} (limit 0.1); logit spread {max(spreads):.6f}")
+    if not max(gaps) <= 0.1:
+        raise RuntimeError(f"greedy token {max(gaps)} below the top logit")
+    return {"max_logit_gap": max(gaps), "logit_spread": max(spreads)}
+
+
+def measure_decode(model, n_kv: int, card: str, batch: int = 8,
+                   position: int = 31):
+    """One decode forward at ``batch`` rows, each at ``position`` of its
+    own pages, through the model's decode entry point over a pool of the
+    engine's shape (the engine's forward, without the engine).  Host
+    time (the call's return) and CUDA-event time over 10 calls; kernel
+    time, launches and breakdown from the profiler; the weight casts and
+    one layer's ``paged_attend`` timed alone; the device's busy share of
+    an engine-like decode step (forward, logits to the host,
+    sampling)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm.kv_cache import (init_cache, pages_for,
+                                            paged_attend)
+    from ray_tpu_torch.llm.sampling import sample
+    from ray_tpu_torch.models.gpt2 import Dense
+
+    cfg = model.cfg
+    ps, n_pages = SERVE_ENGINE["page_size"], SERVE_ENGINE["num_pages"]
+    kv = init_cache(cfg.n_layer, n_pages, ps, n_kv, cfg.d_model // cfg.n_head,
+                    cfg.dtype)
+    per = position // ps + 1
+    table = torch.zeros((batch, pages_for(min(cfg.max_seq, n_pages * ps),
+                                          ps)), dtype=torch.long,
+                        device="cuda")
+    table[:, :per] = torch.arange(batch * per, device="cuda").view(batch,
+                                                                   per)
+    kv["page_table"] = table
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                           device="cuda")
+    positions = torch.full((batch, 1), position, device="cuda")
+
+    def forward():
+        return model(tokens, kv_cache=kv, positions=positions)[0]
+
+    def step():
+        return [sample(row) for row in forward()[:, 0].cpu().numpy()]
+
+    logits_w = model.wte if hasattr(model, "wte") else model.lm_head
+    kernels = [m.kernel for m in model.modules() if isinstance(m, Dense)]
+
+    def casts():
+        for k in kernels:
+            k.to(cfg.dtype)
+        logits_w.to(cfg.dtype).float()   # matmul_f32 upcasts it again
+
+    cast_bytes = (6 * sum(k.numel() for k in kernels)
+                  + 12 * logits_w.numel()) if cfg.dtype != torch.float32 \
+        else 0
+    with torch.inference_mode():
+        forward()
+        torch.cuda.synchronize()
+        host, event = [], []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            forward()
+            t1 = time.perf_counter()
+            end.record()
+            end.synchronize()
+            host.append(1e3 * (t1 - t0))
+            event.append(start.elapsed_time(end))
+        prof = device_profile(forward, 3)
+        step_prof = device_profile(step, 5)
+        cast_ms = cuda_ms(casts, 5)
+        q = torch.randn((batch, 1, cfg.n_head, cfg.d_model // cfg.n_head),
+                        generator=gen, device="cuda").to(cfg.dtype)
+        attend_ms = cfg.n_layer * cuda_ms(
+            lambda: paged_attend(q, kv["k_pages"][0], kv["v_pages"][0],
+                                 table, positions), 10)
+    if prof is None or step_prof is None:
+        raise RuntimeError("the profiler traced no device time")
+    by_name = prof[0]
+    groups = group_kernels(
+        by_name, {"matrix products": MATMUL_KERNELS,
+                  "copies and casts": ("copy",),
+                  "gather (indexing)": ("index", "gather"),
+                  "softmax": ("softmax",)}, "other")
+    med = float(np.median(event))
+    out = {"batch": batch, "position": position,
+           "host_ms": float(np.median(host)), "event_ms": med,
+           "kernel_ms": sum(groups.values()) / 3e3,
+           "launches": sum(c for _us, c in by_name.values()) // 3,
+           "kernel_ms_by_group": {g: us / 3e3 for g, us in groups.items()},
+           "weight_cast_ms": cast_ms, "weight_cast_gb": cast_bytes / 1e9,
+           "paged_attend_ms": attend_ms,
+           "step_busy_share": step_prof[1] / step_prof[2]}
+    print(f"  decode forward B{batch} at position {position}, medians of 10 "
+          f"calls: host {out['host_ms']:.3f} ms to return, CUDA events "
+          f"{med:.3f} ms; profiler: {out['launches']} launches, kernel "
+          f"time {out['kernel_ms']:.3f} ms (card: {card})")
+    print("    kernel ms by group: " + ", ".join(
+        f"{g} {ms:.3f}" for g, ms in out["kernel_ms_by_group"].items()))
+    print(f"    weight casts alone {cast_ms:.3f} ms ({cast_bytes / 1e9:.3f} "
+          f"GB moved); paged_attend alone x {cfg.n_layer} layers "
+          f"{attend_ms:.3f} ms; device busy share of a decode step "
+          f"(forward, logits to host, sampling) {out['step_busy_share']:.4f}")
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {us / 3e3:9.4f} ms {count // 3:4d}x  {name[:150]}")
+    return out
+
+
+def free_device_memory() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_gpt2(card: str):
+    """[serve] GPT-2 124M, bf16: the load, the logit-gap check of two
+    requests against the non-cached forward, one decode forward."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+
+    cfg = GPT2Config(**GPT2_124M, remat=False, attn_impl="dense")
+    load, tokens, prompts = serve_load(cfg, clients=8, per_client=4,
+                                       prompt_len=16, max_tokens=32)
+    out = load_numbers(cfg, load, card)
+    free_device_memory()
+    # The engine's weights, made again from the same seed on the card.
+    model = gpt2_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    out.update(check_logit_gaps(model, prompts, tokens))
+    out["decode_forward"] = measure_decode(model, cfg.n_head, card)
+    return out
+
+
+def serve_gpt2_float32(card: str):
+    """[serve] GPT-2 124M, float32: two requests' tokens equal the
+    non-cached full forward's greedy tokens.  Too small a load for
+    serving numbers; it records only its checks."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+
+    cfg = GPT2Config(**GPT2_124M, remat=False, attn_impl="dense",
+                     dtype=torch.float32)
+    load, tokens, prompts = serve_load(cfg, clients=2, per_client=1,
+                                       prompt_len=16, max_tokens=8)
+    free_device_memory()
+    model = gpt2_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        for prompt, got in zip(prompts, tokens):
+            toks = list(prompt)
+            for _ in range(len(got)):
+                logits = model(torch.tensor([toks], device="cuda"))
+                toks.append(int(logits[0, -1].argmax()))
+            print(f"  engine {got}\n  full   {toks[len(prompt):]}")
+            if toks[len(prompt):] != got:
+                raise RuntimeError("float32 engine tokens differ from the "
+                                   "non-cached forward's")
+    return {"requests": len(tokens), "tokens": sum(map(len, tokens)),
+            "engine_steps": load["stats"]["steps"],
+            "tokens_equal_full_forward": True}
+
+
+def serve_llama(card: str):
+    """[serve] Llama-2-7B widths, bf16, full depth: the first phase's
+    load, logit-gap check and decode forward."""
+    import torch
+
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    cfg = LlamaConfig.llama2_7b()
+    load, tokens, prompts = serve_load(cfg, clients=8, per_client=4,
+                                       prompt_len=16, max_tokens=32)
+    out = load_numbers(cfg, load, card)
+    free_device_memory()
+    model = llama_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    out.update(check_logit_gaps(model, prompts, tokens))
+    out["decode_forward"] = measure_decode(model, cfg.n_kv_head, card)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -384,11 +773,20 @@ def main() -> int:
     print("[main path] GPT-2 124M, B16 T1024, flash + remat, chunk 256")
     counts = main_path(card, profile="--profile" in sys.argv[1:])
 
+    serving = []
+    for name, phase in (("GPT-2 124M", serve_gpt2),
+                        ("GPT-2 124M float32", serve_gpt2_float32),
+                        ("Llama-2-7B widths", serve_llama)):
+        print(f"[serve] {name}")
+        serving.append({"phase": name, **phase(card)})
+        free_device_memory()
+
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **results[name])
                for name in ("flash_fwd", "flash_dkv", "flash_dq")]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"serving": serving}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

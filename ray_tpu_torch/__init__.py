@@ -2,8 +2,8 @@
 
 The JAX package ``ray_tpu`` is the reference; this package keeps its
 module paths and public names (``ops.flash_attention``,
-``models.gpt2``, ``train.train_step``) so each counterpart is easy to
-find.  It imports ``torch`` and numpy only: nothing of ``jax`` and
+``models.gpt2``, ``models.llama``, ``train.train_step``, ``llm``) so
+each counterpart is easy to find.  It imports ``torch`` and numpy only: nothing of ``jax`` and
 nothing of ``ray_tpu``.
 
 Entry points run on the CUDA card unless the caller passes
@@ -15,4 +15,4 @@ functions use their plain PyTorch versions.
 The package import is kept light: submodules load on demand.
 """
 
-__all__ = ["device", "ops", "models", "train"]
+__all__ = ["device", "llm", "ops", "models", "train"]

@@ -1,10 +1,11 @@
-"""Weights between the JAX GPT-2 param tree and the port's state_dict.
+"""Weights between the JAX param trees and the port's state_dicts.
 
 The port keeps flax's parameter names and layouts (``Dense`` kernels
 [in, out], norms ``scale``/``bias``), so conversion only flattens or
 nests the paths: ``{"params": {"h_0": {"c_attn": {"kernel": a}}}}`` <->
 ``{"h_0.c_attn.kernel": a}``.  The tree side holds numpy arrays, as
-``jax.tree_util.tree_map(np.asarray, params)`` gives them.
+``jax.tree_util.tree_map(np.asarray, params)`` gives them.  Llama
+flattens the same way as GPT-2, so its pair is GPT-2's.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 def gpt2_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     """JAX param tree of numpy arrays -> state_dict of CPU tensors (ready
-    for ``GPT2.load_state_dict``, which copies onto the model's device)."""
+    for the model's ``load_state_dict``, which copies onto its device)."""
     flat: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -42,3 +43,7 @@ def gpt2_params_to_numpy(state_dict) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = val.detach().cpu().numpy()
     return {"params": params}
+
+
+llama_params_from_numpy = gpt2_params_from_numpy
+llama_params_to_numpy = gpt2_params_to_numpy

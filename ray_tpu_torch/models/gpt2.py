@@ -19,10 +19,14 @@ converted weights give the same logits and loss:
   JAX semantics.  The cost is TF32 tensor-core time on float32 copies
   of the operands instead of bf16 products (``ops/matmul.py``).
 
+Decode mode (``kv_cache``/``positions``) writes each layer's K/V into
+the paged pool and attends against it (``llm/kv_cache.py``), as the JAX
+model does; the pool is updated in place and returned, not stacked anew.
+
 This slice covers ``attn_impl`` "dense" and "flash" on one device.  The
-parallel attention implementations, sharding (``mesh``/``rules``), MoE
-blocks and the decode-mode KV cache raise NotImplementedError naming the
-slice of the port that brings them.
+parallel attention implementations, sharding (``mesh``/``rules``) and MoE
+blocks raise NotImplementedError naming the slice of the port that
+brings them.
 """
 
 from __future__ import annotations
@@ -113,17 +117,21 @@ def _check_supported(cfg: GPT2Config) -> None:
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: kernel [in, out] and bias in float32, both cast
-    with the input to ``dtype`` for the product."""
+    with the input to ``dtype`` for the product (no bias with
+    ``use_bias=False``)."""
 
-    def __init__(self, d_in: int, d_out: int, dtype, device):
+    def __init__(self, d_in: int, d_out: int, dtype, device,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(d_in, d_out, device=device))
-        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
+        self.bias = nn.Parameter(torch.zeros(d_out, device=device)) \
+            if use_bias else None
 
     def forward(self, x):
         dt = self.dtype
-        return F.linear(x.to(dt), self.kernel.to(dt).t(), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.kernel.to(dt).t(), bias)
 
 
 class LayerNorm(nn.Module):
@@ -178,10 +186,9 @@ class Block(nn.Module):
         self.mlp_out = Dense(cfg.d_ff, d, dt, device)
 
     def forward(self, x, cache=None):
-        if cache is not None:
-            raise NotImplementedError(
-                "decode mode (paged KV cache) arrives with the serving "
-                "slice of the port")
+        """x [B, T, D] -> [B, T, D]; in decode mode (``cache``: this
+        layer's entry of ``llm.kv_cache.layer_caches``) -> (out,
+        (k_pages, v_pages))."""
         cfg = self.cfg
         h = cfg.n_head
         d_head = cfg.d_model // h
@@ -189,10 +196,17 @@ class Block(nn.Module):
         qkv = self.c_attn(self.ln_1(x))
         q, k, v = (z.unflatten(-1, (h, d_head))
                    for z in qkv.split(cfg.d_model, dim=-1))
-        att = _attention(cfg, q, k, v).reshape(b, t, cfg.d_model)
-        x = x + self.c_proj(att)
+        if cache is not None:
+            # Prefill and single-token decode take the same path: write
+            # this step's K/V into the pool, attend against the history.
+            from ..llm.kv_cache import cached_attention
+            att, pages = cached_attention(q, k, v, cache)
+        else:
+            att = _attention(cfg, q, k, v)
+        x = x + self.c_proj(att.reshape(b, t, cfg.d_model))
         y = F.gelu(self.mlp_in(self.ln_2(x)), approximate="tanh")
-        return x + self.mlp_out(y)
+        out = x + self.mlp_out(y)
+        return out if cache is None else (out, pages)
 
 
 class GPT2(nn.Module):
@@ -215,24 +229,41 @@ class GPT2(nn.Module):
     def forward(self, tokens, return_hidden: bool = False,
                 kv_cache=None, positions=None):
         """tokens [B, T] -> logits [B, T, V] float32 (or the final hidden
-        state [B, T, D] in ``cfg.dtype`` with ``return_hidden``)."""
-        if kv_cache is not None or positions is not None:
-            raise NotImplementedError(
-                "decode mode (paged KV cache) arrives with the serving "
-                "slice of the port")
+        state [B, T, D] in ``cfg.dtype`` with ``return_hidden``).
+
+        Decode mode attends against the paged KV pool instead of
+        recomputing the sequence: ``kv_cache`` is {"k_pages",
+        "v_pages": [L, pages, page, h, d], "page_table": [B, P]} and
+        ``positions`` [B, T] gives each new token's absolute position
+        (negative = padding).  It returns (logits, kv_cache), the pool
+        tensors written in place."""
         cfg = self.cfg
-        t = tokens.shape[1]
+        decode = kv_cache is not None
         wte = self.wte.to(cfg.dtype)
-        x = F.embedding(tokens, wte) + self.wpe[:t].to(cfg.dtype)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for blk in self.blocks():
-            # Remat per block: the block's forward (flash attention
-            # included) runs again in the backward.
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+        if decode:
+            from ..llm.kv_cache import layer_caches
+            x = F.embedding(tokens, wte) + \
+                self.wpe[positions.clamp(min=0)].to(cfg.dtype)
+            caches = layer_caches(kv_cache, positions)
+        else:
+            x = F.embedding(tokens, wte) + \
+                self.wpe[:tokens.shape[1]].to(cfg.dtype)
+        # Decode steps are memory-light; remat would only slow them.
+        remat = cfg.remat and torch.is_grad_enabled() and not decode
+        for i, blk in enumerate(self.blocks()):
+            if decode:
+                x, _ = blk(x, cache=caches[i])
+            elif remat:
+                # The block's forward (flash attention included) runs
+                # again in the backward.
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return matmul_f32(x, wte.t())
+        logits = matmul_f32(x, wte.t())
+        return (logits, kv_cache) if decode else logits
 
 
 def gpt2_init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,

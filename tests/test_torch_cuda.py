@@ -9,13 +9,22 @@ is left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: the kernel's error against the float32 plain version stays
-within twice the bf16 plain version's error plus 2^-8 of the peak.
+within twice the bf16 plain version's error plus 2^-8 of the peak.  The
+serving path (plain PyTorch, no kernel of its own) is held to the same
+engine on the CPU: the same tokens, decode logits within 1e-4 in
+float32.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
+from ray_tpu_torch.llm.engine import EngineConfig, GenerationEngine
+from ray_tpu_torch.llm.kv_cache import paged_store
+from ray_tpu_torch.llm.sampling import SamplingParams
 from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss_fn
+from ray_tpu_torch.models.llama import LlamaConfig, llama_init
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as attention
 from ray_tpu_torch.ops import flash_attention_with_lse as attention_with_lse
@@ -167,3 +176,73 @@ def test_gpt2_flash_step_on_card_matches_cpu(card):
     assert _kernels.launches["flash_dkv"] == before + cfg.n_layer
     assert abs(losses[0] - losses[1]) < 1e-2
     assert abs(norms[0] - norms[1]) < 1e-2 * norms[1]
+
+
+def _engine_run(engine):
+    """Step the engine (no thread) over three prompts in flight, one of
+    them sampled; returns each sequence's frames and every forward's
+    logits on the host."""
+    logits = []
+    real_fwd = engine._fwd
+
+    def spy(*args):
+        out = real_fwd(*args)
+        logits.append(out[0].float().cpu())
+        return out
+
+    engine._fwd = spy
+    seqs = [engine.submit([5, 100, 23, 77], max_tokens=10),
+            engine.submit([9, 4, 300], max_tokens=10,
+                          params=SamplingParams(temperature=0.9, top_k=50),
+                          seed=42),
+            engine.submit(list(range(1, 12)), max_tokens=10)]
+    for _ in range(200):
+        if all(s.finished for s in seqs):
+            break
+        engine.step()
+    frames = [[s.out.get_nowait() for _ in range(s.out.qsize())]
+              for s in seqs]
+    return frames, logits
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_tiny_engine_on_card_matches_cpu(card, family):
+    """Float32 tiny GPT-2 and GQA Llama: the engine on the card gives the
+    CPU engine's frames, its forwards' logits within 1e-4."""
+    if family == "gpt2":
+        cfg = dataclasses.replace(GPT2Config.tiny(), dtype=torch.float32)
+        weights = gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    else:
+        cfg = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
+        assert cfg.n_kv_head < cfg.n_head
+        weights = llama_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ecfg = EngineConfig(page_size=4, num_pages=12, max_batch=4)
+    runs = [_engine_run(GenerationEngine(model_cfg=cfg, engine_cfg=ecfg,
+                                         params=weights.state_dict(),
+                                         device=dev))
+            for dev in (card, "cpu")]
+    (got, got_logits), (want, want_logits) = runs
+    assert got == want
+    assert all(f[-1]["reason"] == "length" for f in got)
+    assert len(got_logits) == len(want_logits)
+    for a, b in zip(got_logits, want_logits):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_store_on_card_drops_padded_rows(card):
+    """Rows 2 and 3 are padding with all-zero page-table rows; page 0
+    holds sequence 0's first tokens and must not change."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    k0 = torch.randn((6, 4, 2, 8), generator=gen, device=card)
+    v0 = torch.randn((6, 4, 2, 8), generator=gen, device=card)
+    k_new = torch.randn((4, 1, 2, 8), generator=gen, device=card)
+    v_new = torch.randn((4, 1, 2, 8), generator=gen, device=card)
+    table = torch.tensor([[0, 5], [3, 1], [0, 0], [0, 0]], device=card)
+    pos = torch.tensor([[5], [2], [-1], [-1]], device=card)
+    k, v = k0.clone(), v0.clone()
+    paged_store(k, v, k_new, v_new, table, pos)
+    want_k, want_v = k0.clone(), v0.clone()
+    want_k[5, 1], want_v[5, 1] = k_new[0, 0], v_new[0, 0]
+    want_k[3, 2], want_v[3, 2] = k_new[1, 0], v_new[1, 0]
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+    assert torch.equal(k[0], k0[0]) and torch.equal(v[0], v0[0])

@@ -154,9 +154,22 @@ def test_later_slices_raise_not_implemented():
                    {"moe_num_experts": 4}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="slice"):
             tgpt2.GPT2(dataclasses.replace(tcfg, **change), device="cpu")
-    model = tgpt2.GPT2(tcfg, device="cpu")
+    # Decode mode (the serving slice) runs: logits, and the same pool
+    # tensors written in place, from the model and from one block.
+    model = tgpt2.gpt2_init(tcfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="serving"):
-        model(toks, kv_cache={}, positions=toks)
-    with pytest.raises(NotImplementedError, match="serving"):
-        model.h_0(torch.zeros(1, 4, 128), cache={})
+    pos = torch.arange(4)[None]
+    pool = torch.zeros(2, 3, 4, 4, 32)
+    kv = {"k_pages": pool, "v_pages": pool.clone(),
+          "page_table": torch.zeros(1, 2, dtype=torch.long)}
+    x = torch.randn(1, 4, 128, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        logits, new = model(toks, kv_cache=kv, positions=pos)
+        out, (k1, _v1) = model.h_0(
+            x, cache={"k_pages": pool[1], "v_pages": kv["v_pages"][1],
+                      "page_table": kv["page_table"], "positions": pos})
+    assert logits.shape == (1, 4, _CFG["vocab_size"])
+    assert new["k_pages"] is pool and new["v_pages"] is kv["v_pages"]
+    assert out.shape == (1, 4, 128)
+    assert k1.data_ptr() == pool[1].data_ptr()
+    assert pool[0, 0].any() and pool[1, 0].any() and not pool[:, 1:].any()

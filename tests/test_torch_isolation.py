@@ -64,7 +64,10 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch, ray_tpu_torch.device\n"
         "import ray_tpu_torch.ops, ray_tpu_torch.ops.flash_attention\n"
         "import ray_tpu_torch.models.gpt2, ray_tpu_torch.models.convert\n"
-        "import ray_tpu_torch.train.train_step\n"
+        "import ray_tpu_torch.models.llama, ray_tpu_torch.train.train_step\n"
+        "import ray_tpu_torch.llm, ray_tpu_torch.llm.engine\n"
+        "import ray_tpu_torch.llm.kv_cache, ray_tpu_torch.llm.sampling\n"
+        "import ray_tpu_torch.llm.serving\n"
         "print(sorted(bad() - before))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -75,16 +78,22 @@ def test_import_adds_no_jax_or_ray_tpu_module():
 
 def test_no_device_means_cuda_or_raise(monkeypatch):
     from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.llm.engine import GenerationEngine
+    from ray_tpu_torch.llm.kv_cache import init_cache
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_init
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
-    cfg = GPT2Config.tiny()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        GPT2(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        gpt2_init(cfg)
+    cfg, lcfg = GPT2Config.tiny(), LlamaConfig.tiny()
+    for entry in (lambda: GPT2(cfg), lambda: gpt2_init(cfg),
+                  lambda: Llama(lcfg), lambda: llama_init(lcfg),
+                  lambda: GenerationEngine(model_cfg=cfg),
+                  lambda: GenerationEngine(model="llama"),
+                  lambda: init_cache(1, 1, 1, 1, 1, torch.float32)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
