@@ -14,6 +14,23 @@ GPT-2 pretraining shape, then drives the main path
 entropy, clip + AdamW) and checks that every step went through the
 kernels.
 
+Beside the main path, two more checks of the flash kernels and two
+training phases of the distributed slice:
+
+- ``[kernels] lse cotangent``: ``flash_attention_with_lse`` at the
+  main-path shape with a random lse cotangent (the one ring attention
+  feeds the backward kernels), causal and not, against the float32
+  plain version under the kernel gate;
+- ``[sharded]``: the main path's step through ``setup_distributed_mesh``
+  (a world-1 NCCL gang), ``shard_state`` (DTensor parameters and
+  moments) and ``make_sharded_train_step`` with ring attention over the
+  one-device ``seq`` axis: first loss within 1e-2 of the unsharded
+  step's, launches 24/12/12 a step, ms/step beside the unsharded one;
+- ``[ring]``: 2 and 4 processes sharing the card in a gloo group run
+  ring (flash) and Ulysses attention at B4 T4096 H12 D64; the gathered
+  outputs and gradients against the single-process flash attention
+  under the kernel gate, and each rank's launches.
+
 Then the serving path (``ray_tpu_torch.llm``: the continuous-batching
 engine over the paged KV cache, plain PyTorch, no kernel of its own)
 runs in three phases, each through ``LLMDeployment.__call__`` after the
@@ -44,8 +61,8 @@ kernel's launches on the main path, error against its plain version,
 times and bound; one JSON line ``{"serving": [...]}`` with each serve
 phase's numbers; the card's name and power limit (``nvidia-smi``); and
 last ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
-device-time breakdown of two more training steps (see
-``profile_steps``).
+device-time breakdown of two more training steps, unsharded and sharded
+(see ``profile_steps``).
 """
 
 import dataclasses
@@ -389,7 +406,278 @@ def main_path(card: str, profile: bool = False):
           f"(per step 24 fwd / 12 dK,dV / 12 dQ)")
     if profile:
         profile_steps(step, state, data)
+    return counts, {"first_loss": losses[0], "median_ms": median,
+                    "tokens_per_s": tok_s}
+
+
+def check_lse_cotangent(b, t, h, d, causal, seed):
+    """``flash_attention_with_lse`` (the kernels, through autograd) with
+    random dO and a random lse cotangent dlse: O, lse, dQ, dK and dV
+    against the plain version run in float32, under ``check_kernels``'
+    gate (twice the bf16 plain version's error plus 2^-8 of the peak;
+    1e-5 for the lse).  Only ring attention gives the kernels a nonzero
+    dlse, which enters as delta = rowsum(dO * O) - dlse."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import (flash_attention_with_lse,
+                                                   flash_dkv_plain,
+                                                   flash_dq_plain,
+                                                   flash_fwd_plain)
+
+    q, k, v, do = attention_inputs(b, t, h, d, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dlse = torch.randn((b, t, h), generator=gen, device="cuda")
+
+    def plain(q, k, v, do):
+        kw = dict(scale=d ** -0.5, causal=causal, block_q=t, block_k=t)
+        out, lse = flash_fwd_plain(q, k, v, **kw)
+        delta = ((do.float() * out.float()).sum(-1) - dlse).transpose(
+            1, 2).contiguous()
+        dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+        dq = flash_dq_plain(q, k, v, do, lse, delta, **kw)
+        return out, lse.transpose(1, 2), dq, dk, dv
+
+    ref = plain(*(x.float() for x in (q, k, v, do)))
+    bf16 = plain(q, k, v, do)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out, lse = flash_attention_with_lse(qg, kg, vg, causal=causal,
+                                        block_q=t, block_k=t)
+    got = (out.detach(), lse.detach(),
+           *torch.autograd.grad((out, lse), (qg, kg, vg), (do, dlse)))
+    torch.cuda.synchronize()
+    for name, g, p, r in zip(("O", "lse", "dQ", "dK", "dV"), got, bf16,
+                             ref):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"lse cotangent {name}: bad output "
+                               f"{tuple(g.shape)}")
+        err_k, err_p = max_abs(g, r), max_abs(p, r)
+        rel = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-5
+        tol = 2 * err_p + rel * float(r.abs().max())
+        print(f"  {name} B{b} T{t} H{h} D{d} causal={causal}: |kernel-ref| "
+              f"{err_k:.3e}  |plain-ref| {err_p:.3e}  tol {tol:.3e}")
+        if not err_k <= tol:
+            raise RuntimeError(f"lse cotangent {name}: kernel error {err_k} "
+                               f"over tolerance {tol}")
+
+
+def sharded_path(card: str, unsharded: dict, profile: bool = False):
+    """[sharded] The main path's step sharded: ``setup_distributed_mesh``
+    joins a world-1 NCCL gang, ``shard_state`` places GPT-2 124M (bf16,
+    remat, ring attention over the one-device ``seq`` axis) as DTensors,
+    and ``make_sharded_train_step`` takes 1 warm and 10 timed steps at
+    B16 T1024 on the main path's weights and batch (seed 0).  The loss
+    under a mesh is the full-logits one, as in the JAX package.  Checks:
+    the first loss within 1e-2 of the unsharded step's, finite loss and
+    grad norm every step, launches exactly 24/12/12 a step.  Returns the
+    launch counts."""
+    import tempfile
+
+    import torch
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                           gpt2_loss_fn, gpt2_param_axes)
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from ray_tpu_torch.parallel.sharding import (ShardingRules, distribute,
+                                                 logical_sharding)
+    from ray_tpu_torch.train.distributed import setup_distributed_mesh
+    from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
+                                                make_sharded_train_step,
+                                                shard_state)
+
+    batch, warm, steps = 16, 1, 10
+    with tempfile.TemporaryDirectory() as rendezvous:
+        gang = setup_distributed_mesh(rank=0, world=1, device="cuda",
+                                      init_method=f"file://{rendezvous}/gang")
+        try:
+            print(f"  gang {gang.group_name!r}: world {gang.world}, mesh "
+                  f"{gang.axis_sizes}, backend "
+                  f"{torch.distributed.get_backend()}")
+            mesh = create_mesh(MeshSpec(), device="cuda")
+            rules = ShardingRules()
+            cfg = GPT2Config(**GPT2_124M, remat=True, attn_impl="ring",
+                             mesh=mesh, rules=rules)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            model = gpt2_init(cfg, gen, device="cuda")
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (batch, cfg.max_seq + 1), generator=gen,
+                                   device="cuda")
+            optimizer = make_optimizer(total_steps=1000)
+            state = shard_state(TrainState.create(model, optimizer), mesh,
+                                gpt2_param_axes, rules)
+            step = make_sharded_train_step(
+                lambda m, b: gpt2_loss_fn(cfg, m, b), optimizer, mesh)
+            data = {"tokens": distribute(tokens, logical_sharding(
+                mesh, ("batch", None), rules))}
+            metrics = []
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launches()
+            for _ in range(warm):
+                state, m = step(state, data)
+                metrics.append(m)
+            bounds = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(steps + 1)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bounds[0].record()
+            for i in range(steps):
+                state, m = step(state, data)
+                bounds[i + 1].record()
+                metrics.append(m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(_kernels.launches)
+            if profile:
+                profile_steps(step, state, data)
+        finally:
+            col.destroy_collective_group(gang.group_name)
+
+    total = warm + steps
+    want = {"flash_fwd": 2 * cfg.n_layer * total,
+            "flash_dkv": cfg.n_layer * total,
+            "flash_dq": cfg.n_layer * total}
+    if counts != want:
+        raise RuntimeError(f"kernel launches {counts}, expected {want}")
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"non-finite loss/grad_norm {losses} {norms}")
+    gap = abs(losses[0] - unsharded["first_loss"])
+    print(f"  first loss {losses[0]:.6f}, unsharded step's "
+          f"{unsharded['first_loss']:.6f}: gap {gap:.3e} (limit 1e-2)")
+    if not gap < 1e-2:
+        raise RuntimeError("sharded first loss disagrees with the "
+                           "unsharded step's")
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(bounds, bounds[1:]))
+    median = (step_ms[(steps - 1) // 2] + step_ms[steps // 2]) / 2
+    tok_s = batch * cfg.max_seq * steps / wall
+    print(f"  losses {losses}")
+    print(f"  grad_norms {norms}")
+    print(f"  {steps} steps: per-step device time median {median:.3f} ms "
+          f"(min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}) against the "
+          f"unsharded step's {unsharded['median_ms']:.3f} ms "
+          f"({median / unsharded['median_ms']:.4f}x); {tok_s:.1f} tokens/s "
+          f"(host clock; unsharded {unsharded['tokens_per_s']:.1f}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"(card: {card})")
+    print(f"  launches over {total} steps: {counts} "
+          f"(per step 24 fwd / 12 dK,dV / 12 dQ)")
     return counts
+
+
+# [ring]: GPT-2's attention width at the context ring attention is for.
+RING = dict(b=4, t=4096, h=12, d=64, seed=5)
+
+
+def ring_rank(rank: int, world: int, rendezvous: str):
+    """[ring] One of ``world`` processes on cuda:0: its sequence shard of
+    the seed-5 inputs through ring (flash) and Ulysses attention, forward
+    and backward, over a gloo group (CUDA tensors staged through host
+    memory).  Returns each kind's launch counts and host-clock ms and,
+    on rank 0, the output and gradients gathered over the group (float32
+    numpy)."""
+    import functools
+
+    import torch
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.dryrun import join
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+    torch.cuda.set_device(0)
+    group = join(rank, world, rendezvous, backend="gloo")
+    try:
+        b, t, h, d = RING["b"], RING["t"], RING["h"], RING["d"]
+        q, k, v, do = attention_inputs(b, t, h, d, RING["seed"])
+        rows = slice(rank * t // world, (rank + 1) * t // world)
+        out = {}
+        for kind, fn in (("ring", functools.partial(ring_attention,
+                                                    impl="flash")),
+                         ("ulysses", ulysses_attention)):
+            ql, kl, vl = (x[:, rows].contiguous().requires_grad_()
+                          for x in (q, k, v))
+            _kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = fn(ql, kl, vl, group=group, causal=True)
+            grads = torch.autograd.grad(o, (ql, kl, vl),
+                                        do[:, rows].contiguous())
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = dict(_kernels.launches)
+            full = [torch.cat(col.allgather(x.detach().contiguous(), "gang"),
+                              dim=1) for x in (o, *grads)]
+            out[kind] = {"launches": counts, "ms": ms,
+                         "full": [f.float().cpu().numpy() for f in full]
+                         if rank == 0 else None}
+        return out
+    finally:
+        col.destroy_collective_group("gang")
+
+
+def ring_phase(card: str):
+    """[ring] ``seq`` = 2 and 4 processes sharing the card, a gloo group
+    and a ``file://`` rendezvous (``dryrun.spawn``, join timeout 300 s):
+    ring (flash kernels) and Ulysses attention at B4, global T 4096, H12,
+    D64, bf16, causal.  The outputs and dQ/dK/dV gathered to rank 0 must
+    be as close to the float32 reference as the single-process
+    ``flash_attention`` on the full sequence is, under the kernel gate:
+    within twice its error plus 2^-8 of the peak.  Each rank of the ring
+    must launch its diagonal block and every block before it: r + 1
+    forward, dK/dV and dQ kernels on rank r."""
+    import torch
+
+    from ray_tpu_torch.dryrun import spawn
+    from ray_tpu_torch.ops import flash_attention
+
+    b, t, h, d = RING["b"], RING["t"], RING["h"], RING["d"]
+    q, k, v, do = attention_inputs(b, t, h, d, RING["seed"])
+
+    def forward_backward(fn, *xs):
+        xs = [x.detach().requires_grad_() for x in xs]
+        o = fn(*xs)
+        return [o.detach(), *torch.autograd.grad(o, xs, do.to(o.dtype))]
+
+    def dense32(q, k, v):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+        mask = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+        p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+    ref = forward_backward(dense32, *(x.float() for x in (q, k, v)))
+    single = forward_backward(
+        lambda *x: flash_attention(*x, causal=True), q, k, v)
+    torch.cuda.synchronize()
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        runs = spawn(ring_rank, world, timeout=300.0)
+        print(f"  seq={world}: {world} processes on cuda:0 ran in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for kind in ("ring", "ulysses"):
+            for rank, run in enumerate(runs):
+                counts = run[kind]["launches"]
+                print(f"    {kind} rank {rank}: launches {counts}, "
+                      f"{run[kind]['ms']:.1f} ms (first call, host clock)")
+                want = ({"flash_fwd": rank + 1, "flash_dkv": rank + 1,
+                         "flash_dq": rank + 1} if kind == "ring" else
+                        {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0})
+                if counts != want:
+                    raise RuntimeError(f"{kind} seq={world} rank {rank}: "
+                                       f"launches {counts}, expected {want}")
+            for name, g, s1, r in zip(("O", "dQ", "dK", "dV"),
+                                      runs[0][kind]["full"], single, ref):
+                g = torch.from_numpy(g).to("cuda")
+                err, err_single = max_abs(g, r), max_abs(s1, r)
+                tol = 2 * err_single + 2.0 ** -8 * float(r.abs().max())
+                print(f"    {kind} seq={world} {name}: |{kind}-ref| "
+                      f"{err:.3e}  |single-ref| {err_single:.3e}  tol "
+                      f"{tol:.3e}  |{kind}-single| {max_abs(g, s1):.3e}")
+                if not err <= tol:
+                    raise RuntimeError(f"{kind} seq={world} {name}: error "
+                                       f"{err} over tolerance {tol}")
 
 
 # bench.py --serve-llm's engine configuration.
@@ -770,8 +1058,24 @@ def main() -> int:
     results = check_kernels(16, 1024, 12, 64, causal=True, seed=2,
                             timed=True)
 
+    print("[kernels] lse cotangent: flash_attention_with_lse with random "
+          "dO and dlse, B16 T1024 H12 D64 bf16")
+    for causal in (True, False):
+        check_lse_cotangent(16, 1024, 12, 64, causal=causal, seed=6)
+
     print("[main path] GPT-2 124M, B16 T1024, flash + remat, chunk 256")
-    counts = main_path(card, profile="--profile" in sys.argv[1:])
+    counts, unsharded = main_path(card, profile="--profile" in sys.argv[1:])
+    free_device_memory()
+
+    print("[sharded] GPT-2 124M, B16 T1024, world-1 NCCL gang, DTensor "
+          "state, ring attention, full-logits loss")
+    sharded_path(card, unsharded, profile="--profile" in sys.argv[1:])
+    free_device_memory()
+
+    print("[ring] ring (flash) and Ulysses attention, seq = 2 and 4 "
+          "processes on one card, gloo, B4 T4096 H12 D64 bf16 causal")
+    ring_phase(card)
+    free_device_memory()
 
     serving = []
     for name, phase in (("GPT-2 124M", serve_gpt2),

@@ -15,4 +15,5 @@ functions use their plain PyTorch versions.
 The package import is kept light: submodules load on demand.
 """
 
-__all__ = ["device", "llm", "ops", "models", "train"]
+__all__ = ["collective", "device", "dryrun", "llm", "models", "ops",
+           "parallel", "train"]

@@ -1,0 +1,153 @@
+"""What the NCCL and the gloo group share: the eager collectives over one
+``torch.distributed`` process group.
+
+The ops are functional, as in the JAX package: each returns its result
+and leaves the input alone.  Ranks are the group's own (0..world-1);
+``torch.distributed`` takes global ranks, which ``_global`` maps to.
+Subclasses say where a tensor must lie for the backend (``_stage``) and
+where the result goes back to (``_unstage``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from datetime import timedelta
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+from ..types import ReduceOp
+
+_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
+              ReduceOp.MEAN: dist.ReduceOp.SUM,     # divided afterwards
+              ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT,
+              ReduceOp.MAX: dist.ReduceOp.MAX,
+              ReduceOp.MIN: dist.ReduceOp.MIN}
+
+# send/recv carry a header before the payload, so ``recv`` needs no
+# shape from its caller (the JAX groups pickle whole arrays).
+_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+           torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
+           torch.bool)
+_MAX_NDIM = 8
+
+
+class TorchGroup:
+    """One rank's membership in a named group over ``process_group``."""
+
+    backend = ""
+
+    def __init__(self, group_name: str, world_size: int, rank: int,
+                 process_group):
+        self.group_name = group_name
+        self.world_size = world_size
+        self.rank = rank
+        self.process_group = process_group
+
+    # ------------------------------------------------------- placement
+    def _stage(self, tensor: torch.Tensor) -> torch.Tensor:
+        """A private copy of ``tensor`` where the backend can use it."""
+        raise NotImplementedError
+
+    def _unstage(self, result: torch.Tensor,
+                 like: torch.Tensor) -> torch.Tensor:
+        return result
+
+    def _device(self) -> torch.device:
+        """Where the backend receives."""
+        raise NotImplementedError
+
+    def _global(self, group_rank: int) -> int:
+        return dist.get_global_rank(self.process_group, group_rank)
+
+    def _gang_op(self, op: str, nbytes: int = 0):
+        """No-op hook where the JAX groups stamp the gang-op telemetry
+        (``collective/telemetry.py``); the port's telemetry plane is a
+        later slice."""
+        return contextlib.nullcontext()
+
+    # -------------------------------------------------------------- ops
+    def allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM):
+        op = ReduceOp(op)
+        with self._gang_op("allreduce", tensor.nbytes):
+            x = self._stage(tensor)
+            dist.all_reduce(x, op=_TORCH_OPS[op], group=self.process_group)
+            if op == ReduceOp.MEAN:
+                x = x / self.world_size
+            return self._unstage(x, tensor)
+
+    def allgather(self, tensor) -> List[torch.Tensor]:
+        with self._gang_op("allgather", tensor.nbytes):
+            x = self._stage(tensor)
+            parts = [torch.empty_like(x) for _ in range(self.world_size)]
+            dist.all_gather(parts, x, group=self.process_group)
+            return [self._unstage(p, tensor) for p in parts]
+
+    def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
+        """Reduce, then return this rank's piece of axis 0 (pieces as
+        ``torch.tensor_split`` cuts them, numpy's ``array_split``)."""
+        op = ReduceOp(op)
+        with self._gang_op("reducescatter", tensor.nbytes):
+            x = self._stage(tensor)
+            n = self.world_size
+            if x.dim() and x.shape[0] % n == 0:
+                out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+                dist.reduce_scatter_tensor(out, x, op=_TORCH_OPS[op],
+                                           group=self.process_group)
+            else:   # uneven pieces: reduce whole, keep this rank's
+                dist.all_reduce(x, op=_TORCH_OPS[op],
+                                group=self.process_group)
+                out = torch.tensor_split(x, n, dim=0)[self.rank]
+            if op == ReduceOp.MEAN:
+                out = out / n
+            return self._unstage(out, tensor)
+
+    def broadcast(self, tensor, src_rank: int = 0):
+        with self._gang_op("broadcast", tensor.nbytes):
+            x = self._stage(tensor)
+            dist.broadcast(x, src=self._global(src_rank),
+                           group=self.process_group)
+            return self._unstage(x, tensor)
+
+    def barrier(self) -> None:
+        with self._gang_op("barrier"):
+            dist.barrier(group=self.process_group)
+
+    def send(self, tensor, dst_rank: int) -> None:
+        """Blocking send of a tensor of any shape and supported dtype;
+        the receiver learns both from a header."""
+        if tensor.dim() > _MAX_NDIM or tensor.dtype not in _DTYPES:
+            raise ValueError(f"send takes up to {_MAX_NDIM} dims of "
+                             f"{_DTYPES}, got {tensor.dtype} "
+                             f"{tuple(tensor.shape)}")
+        x = self._stage(tensor).contiguous()
+        head = [_DTYPES.index(x.dtype), x.dim(), *x.shape]
+        header = torch.zeros(2 + _MAX_NDIM, dtype=torch.int64,
+                             device=x.device)
+        header[:len(head)] = torch.tensor(head, dtype=torch.int64)
+        dst = self._global(dst_rank)
+        dist.send(header, dst=dst, group=self.process_group)
+        dist.send(x, dst=dst, group=self.process_group)
+
+    def recv(self, src_rank: int, timeout: float = 120.0) -> torch.Tensor:
+        """Blocking receive from ``src_rank``, on the device the backend
+        receives on; raises if nothing arrives within ``timeout``
+        seconds."""
+        src = self._global(src_rank)
+        wait = timedelta(seconds=timeout)
+        header = torch.zeros(2 + _MAX_NDIM, dtype=torch.int64,
+                             device=self._device())
+        dist.irecv(header, src=src, group=self.process_group).wait(wait)
+        code, ndim, *shape = header.tolist()
+        x = torch.empty(shape[:ndim], dtype=_DTYPES[code],
+                        device=header.device)
+        dist.irecv(x, src=src, group=self.process_group).wait(wait)
+        return x
+
+    def destroy(self) -> None:
+        """Leave the group.  A group made with ``new_group`` is torn
+        down here; the default group is left to the group manager."""
+        if self.process_group is not dist.group.WORLD:
+            dist.destroy_process_group(self.process_group)
+        self.process_group = None

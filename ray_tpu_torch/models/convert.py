@@ -5,7 +5,8 @@ The port keeps flax's parameter names and layouts (``Dense`` kernels
 nests the paths: ``{"params": {"h_0": {"c_attn": {"kernel": a}}}}`` <->
 ``{"h_0.c_attn.kernel": a}``.  The tree side holds numpy arrays, as
 ``jax.tree_util.tree_map(np.asarray, params)`` gives them.  Llama
-flattens the same way as GPT-2, so its pair is GPT-2's.
+flattens the same way as GPT-2, so its pair is GPT-2's.  A sharded
+state dict (DTensors) converts to the same tree, gathered whole.
 """
 
 from __future__ import annotations
@@ -34,9 +35,15 @@ def gpt2_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
 
 
 def gpt2_params_to_numpy(state_dict) -> dict:
-    """state_dict -> ``{"params": {...}}`` nested dict of numpy arrays."""
+    """state_dict -> ``{"params": {...}}`` nested dict of numpy arrays.
+    Sharded values (DTensors, ``train_step.shard_state``) are gathered
+    whole with ``full_tensor()``, a collective every rank must call."""
+    from torch.distributed.tensor import DTensor
+
     params: dict = {}
     for name, val in state_dict.items():
+        if isinstance(val, DTensor):
+            val = val.full_tensor()
         node = params
         *parents, leaf = name.split(".")
         for p in parents:

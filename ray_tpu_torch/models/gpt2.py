@@ -23,17 +23,22 @@ Decode mode (``kv_cache``/``positions``) writes each layer's K/V into
 the paged pool and attends against it (``llm/kv_cache.py``), as the JAX
 model does; the pool is updated in place and returned, not stacked anew.
 
-This slice covers ``attn_impl`` "dense" and "flash" on one device.  The
-parallel attention implementations, sharding (``mesh``/``rules``) and MoE
-blocks raise NotImplementedError naming the slice of the port that
-brings them.
+Sharded runs (``mesh``: a ``DeviceMesh`` from ``parallel.mesh``,
+``rules``: ``ShardingRules``) take DTensor parameters placed by
+``train_step.shard_state``.  As in the JAX model, activations are
+constrained to their logical axes after the embedding, around attention,
+in the MLP and after each block (``_constrain``); DTensor's sharding
+propagation inserts the collectives that GSPMD inserts in JAX.  Ring and
+Ulysses attention run on the local shards under ``local_map`` (JAX's
+``shard_map``).  MoE blocks raise NotImplementedError: they arrive with
+the expert-parallel slice of the port.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,10 +59,10 @@ class GPT2Config:
     max_seq: int = 1024
     dropout: float = 0.0
     dtype: Any = torch.bfloat16
-    attn_impl: str = "dense"          # dense | flash (ring | ulysses later)
+    attn_impl: str = "dense"          # dense | flash | ring | ulysses
     remat: bool = True
-    mesh: Any = None                  # sharded runs: a later slice
-    rules: Any = None
+    mesh: Any = None                  # DeviceMesh for sharded runs
+    rules: Any = None                 # ShardingRules override
     moe_num_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 2
@@ -101,18 +106,34 @@ class GPT2Config:
 
 
 def _check_supported(cfg: GPT2Config) -> None:
-    if cfg.attn_impl not in ("dense", "flash"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} arrives with the parallelism "
-            "slice of the port (ring/Ulysses attention)")
-    if cfg.mesh is not None or cfg.rules is not None:
-        raise NotImplementedError(
-            "sharded GPT-2 (mesh/rules) arrives with the parallelism "
-            "slice of the port")
+    if cfg.attn_impl not in ("dense", "flash", "ring", "ulysses"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     if cfg.moe_num_experts > 0:
         raise NotImplementedError(
-            "MoE blocks arrive with the parallelism slice of the port "
-            "(expert parallelism)")
+            "MoE blocks arrive with the expert-parallel slice of the port")
+
+
+def _constrain(x, logical, cfg):
+    """Redistribute ``x`` to its logical axes under ``cfg.mesh``."""
+    if cfg.mesh is None:
+        return x
+    from ..parallel.sharding import ShardingRules, with_logical_constraint
+
+    return with_logical_constraint(x, logical, cfg.mesh,
+                                   cfg.rules or ShardingRules())
+
+
+def _embed(tokens, table):
+    """``table[tokens]``.  A sharded table is gathered first: DTensor's
+    lookup into a table sharded on its vocab rows fails when the tokens
+    are sharded on another mesh axis (its masked partial result does
+    not fit the token shard)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(table, DTensor):
+        table = table.redistribute(
+            table.device_mesh, [Replicate()] * table.device_mesh.ndim)
+    return F.embedding(tokens, table)
 
 
 class Dense(nn.Module):
@@ -155,7 +176,7 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.dtype)
 
 
-def _attention(cfg: GPT2Config, q, k, v):
+def _attention(cfg, q, k, v):
     """q, k, v: [B, T, H, D] -> [B, T, H, D]."""
     if cfg.attn_impl == "flash":
         from ..ops.flash_attention import flash_attention
@@ -164,13 +185,30 @@ def _attention(cfg: GPT2Config, q, k, v):
         # blocks only validate T (the kernels tile by 64 rows).
         return flash_attention(q, k, v, causal=True,
                                block_q=1024, block_k=1024)
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    scores = matmul_f32(qh, kh.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
-    t = q.shape[1]
-    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-    scores = torch.where(mask, scores, -1e30)
-    p = torch.softmax(scores, dim=-1).to(cfg.dtype)
-    return torch.matmul(p, vh).transpose(1, 2)
+    if cfg.attn_impl == "dense":
+        from ..parallel.sharding import replicate_like
+
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        scores = matmul_f32(qh, kh.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+        t = q.shape[1]
+        mask = replicate_like(scores, torch.ones(
+            t, t, dtype=torch.bool, device=scores.device).tril())
+        scores = torch.where(mask, scores, -1e30)
+        p = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        return torch.matmul(p, vh).transpose(1, 2)
+    import functools
+
+    from ..parallel.ring_attention import local_attention, ring_attention
+    from ..parallel.sharding import PartitionSpec
+    from ..parallel.ulysses import ulysses_attention
+
+    if cfg.mesh is None:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r} needs cfg.mesh")
+    inner = (ring_attention if cfg.attn_impl == "ring"
+             else ulysses_attention)
+    spec = PartitionSpec(("data", "fsdp"), "seq", None, None)
+    return local_attention(cfg.mesh, spec, functools.partial(
+        inner, group=cfg.mesh.get_group("seq"), causal=True), q, k, v)
 
 
 class Block(nn.Module):
@@ -202,10 +240,13 @@ class Block(nn.Module):
             from ..llm.kv_cache import cached_attention
             att, pages = cached_attention(q, k, v, cache)
         else:
+            q, k, v = (_constrain(z, ("batch", "seq", "heads", None), cfg)
+                       for z in (q, k, v))
             att = _attention(cfg, q, k, v)
         x = x + self.c_proj(att.reshape(b, t, cfg.d_model))
-        y = F.gelu(self.mlp_in(self.ln_2(x)), approximate="tanh")
-        out = x + self.mlp_out(y)
+        y = _constrain(self.mlp_in(self.ln_2(x)), ("batch", "seq", "mlp"),
+                       cfg)
+        out = x + self.mlp_out(F.gelu(y, approximate="tanh"))
         return out if cache is None else (out, pages)
 
 
@@ -246,8 +287,8 @@ class GPT2(nn.Module):
                 self.wpe[positions.clamp(min=0)].to(cfg.dtype)
             caches = layer_caches(kv_cache, positions)
         else:
-            x = F.embedding(tokens, wte) + \
-                self.wpe[:tokens.shape[1]].to(cfg.dtype)
+            x = _embed(tokens, wte) + self.wpe[:tokens.shape[1]].to(cfg.dtype)
+        x = _constrain(x, ("batch", "seq", "embed"), cfg)
         # Decode steps are memory-light; remat would only slow them.
         remat = cfg.remat and torch.is_grad_enabled() and not decode
         for i, blk in enumerate(self.blocks()):
@@ -259,10 +300,12 @@ class GPT2(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)
+            x = _constrain(x, ("batch", "seq", "embed"), cfg)
         x = self.ln_f(x)
         if return_hidden:
             return x
-        logits = matmul_f32(x, wte.t())
+        logits = _constrain(matmul_f32(x, wte.t()), ("batch", "seq", "vocab"),
+                            cfg)
         return (logits, kv_cache) if decode else logits
 
 
@@ -343,11 +386,9 @@ def chunked_xent(x, wte, targets, chunk: int):
 
 def gpt2_loss_fn(cfg: GPT2Config, model: GPT2, batch,
                  loss_chunk: int = 128) -> torch.Tensor:
-    """Next-token cross entropy; batch: {"tokens": [B, T+1] ints}."""
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "the MoE auxiliary loss arrives with the parallelism slice of "
-            "the port")
+    """Next-token cross entropy; batch: {"tokens": [B, T+1] ints}.
+    Under a mesh the logits stay whole (the chunked loss is for one
+    device), as in the JAX model."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     t = inputs.shape[1]
@@ -361,12 +402,38 @@ def gpt2_loss_fn(cfg: GPT2Config, model: GPT2, batch,
 
 
 def gpt2_partition_rules():
-    raise NotImplementedError(
-        "GPT-2 partition rules arrive with the parallelism slice of the "
-        "port")
+    """Default fsdp+tensor partition rules for GPT-2 parameter trees, in
+    ``match_partition_rules`` form ((regex, PartitionSpec) pairs, first
+    match wins), over flax's slash-joined paths.  The MoE entries of the
+    JAX package's set arrive with the expert-parallel slice."""
+    from ..parallel.sharding import PartitionSpec as PS
+
+    return (
+        ("wte$", PS("tensor", "fsdp")),
+        ("wpe$", PS()),
+        (r"c_attn/kernel$", PS("fsdp", "tensor")),
+        (r"c_proj/kernel$", PS("tensor", "fsdp")),
+        (r"mlp_in/kernel$", PS("fsdp", "tensor")),
+        (r"mlp_out/kernel$", PS("tensor", "fsdp")),
+        (r"(bias|scale)$", PS()),
+    )
 
 
-def gpt2_param_axes(path: str, leaf):
-    raise NotImplementedError(
-        "GPT-2 logical parameter axes arrive with the parallelism slice "
-        "of the port")
+def gpt2_param_axes(path: str, leaf) -> Tuple[Optional[str], ...]:
+    """Logical axes per parameter path, for ``shard_pytree`` and
+    ``train_step.shard_state`` (DP/FSDP/TP)."""
+    if "wte" in path:
+        return ("vocab", "embed_fsdp")
+    if "wpe" in path:
+        return (None, None)
+    if leaf.ndim == 1:
+        return (None,)
+    if "c_attn" in path:
+        return ("embed_fsdp", "heads")
+    if "c_proj" in path:
+        return ("heads", "embed_fsdp")
+    if "mlp_in" in path:
+        return ("embed_fsdp", "mlp")
+    if "mlp_out" in path:
+        return ("mlp", "embed_fsdp")
+    return (None,) * leaf.ndim

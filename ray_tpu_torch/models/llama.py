@@ -18,16 +18,17 @@ float32-result logits through ``matmul_f32``):
   order of ``jnp.repeat``) before attention in the full forward and at
   attend time in decode mode, so the paged cache stores n_kv_head heads.
 
-This slice covers dense attention on one device; ring/Ulysses attention,
-sharding (``mesh``/``rules``) and the partition rules raise
-NotImplementedError naming the slice of the port that brings them.
+Sharded runs (``mesh``/``rules``, ring and Ulysses attention) work as in
+``gpt2.py``: the same ``_constrain`` points as the JAX model, and ring
+or Ulysses attention on the repeated K/V heads, as the JAX model feeds
+them.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.matmul import matmul_f32
-from .gpt2 import Dense, _attention
+from ..parallel.sharding import replicate_like
+from .gpt2 import Dense, _attention, _constrain, _embed
 
 
 @dataclass(frozen=True)
@@ -52,10 +54,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    attn_impl: str = "dense"          # dense (ring | ulysses later)
+    attn_impl: str = "dense"          # dense | ring | ulysses
     remat: bool = True
-    mesh: Any = None                  # sharded runs: a later slice
-    rules: Any = None
+    mesh: Any = None                  # DeviceMesh for sharded runs
+    rules: Any = None                 # ShardingRules override
 
     @staticmethod
     def tiny() -> "LlamaConfig":
@@ -99,14 +101,8 @@ class LlamaConfig:
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.attn_impl != "dense":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} arrives with the parallelism "
-            "slice of the port (ring/Ulysses attention)")
-    if cfg.mesh is not None or cfg.rules is not None:
-        raise NotImplementedError(
-            "sharded Llama (mesh/rules) arrives with the parallelism "
-            "slice of the port")
+    if cfg.attn_impl not in ("dense", "ring", "ulysses"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -129,8 +125,8 @@ def _rope(x, theta: float, positions=None):
     b, t, h, d = x.shape
     half = d // 2
     if positions is None:
-        cos, sin = (torch.from_numpy(a).to(x.device)[None, :, None, :]
-                    for a in _rope_tables(t, d, theta))
+        cos, sin = (replicate_like(x, torch.from_numpy(a).to(x.device)[
+            None, :, None, :]) for a in _rope_tables(t, d, theta))
     else:
         pos = positions.clamp(min=0).float()
         freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -199,12 +195,16 @@ class LlamaBlock(nn.Module):
             att, pages = cached_attention(q, k, v, cache)
         else:
             if hk != h:
-                k = k.repeat_interleave(h // hk, dim=2)
-                v = v.repeat_interleave(h // hk, dim=2)
-            att = _attention(cfg, q, k, v)   # dense: gpt2's, same numerics
+                # jnp.repeat's order: each KV head h // hk times in a row.
+                k, v = (z.unsqueeze(3).expand(b, t, hk, h // hk, d_head)
+                        .reshape(b, t, h, d_head) for z in (k, v))
+            q, k, v = (_constrain(z, ("batch", "seq", "heads", None), cfg)
+                       for z in (q, k, v))
+            att = _attention(cfg, q, k, v)   # gpt2's, same numerics
         x = x + self.wo(att.reshape(b, t, cfg.d_model))
         y = self.mlp_norm(x)
-        z = F.silu(self.w_gate(y)) * self.w_up(y)
+        z = _constrain(F.silu(self.w_gate(y)) * self.w_up(y),
+                       ("batch", "seq", "mlp"), cfg)
         out = x + self.w_down(z)
         return out if cache is None else (out, pages)
 
@@ -232,7 +232,8 @@ class Llama(nn.Module):
         with ``GPT2.forward``'s contract: (logits, kv_cache)."""
         cfg = self.cfg
         decode = kv_cache is not None
-        x = F.embedding(tokens, self.embed).to(cfg.dtype)
+        x = _constrain(_embed(tokens, self.embed).to(cfg.dtype),
+                       ("batch", "seq", "embed"), cfg)
         caches = None
         if decode:
             from ..llm.kv_cache import layer_caches
@@ -245,8 +246,10 @@ class Llama(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)
+            x = _constrain(x, ("batch", "seq", "embed"), cfg)
         x = self.norm_f(x)
-        logits = matmul_f32(x, self.lm_head.to(cfg.dtype))
+        logits = _constrain(matmul_f32(x, self.lm_head.to(cfg.dtype)),
+                            ("batch", "seq", "vocab"), cfg)
         return (logits, kv_cache) if decode else logits
 
 
@@ -278,12 +281,35 @@ def llama_loss_fn(cfg: LlamaConfig, model: Llama, batch) -> torch.Tensor:
 
 
 def llama_partition_rules():
-    raise NotImplementedError(
-        "Llama partition rules arrive with the parallelism slice of the "
-        "port")
+    """Default fsdp+tensor partition rules for Llama parameter trees
+    (``match_partition_rules`` form; see ``gpt2_partition_rules``)."""
+    from ..parallel.sharding import PartitionSpec as PS
+
+    return (
+        ("embed$", PS("tensor", "fsdp")),
+        ("lm_head$", PS("fsdp", "tensor")),
+        (r"w[qkv]/kernel$", PS("fsdp", "tensor")),
+        (r"wo/kernel$", PS("tensor", "fsdp")),
+        (r"(w_gate|w_up)/kernel$", PS("fsdp", "tensor")),
+        (r"w_down/kernel$", PS("tensor", "fsdp")),
+        (r"(scale|bias)$", PS()),
+    )
 
 
-def llama_param_axes(path: str, leaf):
-    raise NotImplementedError(
-        "Llama logical parameter axes arrive with the parallelism slice "
-        "of the port")
+def llama_param_axes(path: str, leaf) -> Tuple[Optional[str], ...]:
+    """Logical axes per parameter path (see ``gpt2_param_axes``)."""
+    if "embed" in path and leaf.ndim == 2:
+        return ("vocab", "embed_fsdp")
+    if "lm_head" in path:
+        return ("embed_fsdp", "vocab")
+    if leaf.ndim == 1:
+        return (None,)
+    if any(k in path for k in ("wq", "wk", "wv")):
+        return ("embed_fsdp", "heads")
+    if "wo" in path:
+        return ("heads", "embed_fsdp")
+    if any(k in path for k in ("w_gate", "w_up")):
+        return ("embed_fsdp", "mlp")
+    if "w_down" in path:
+        return ("mlp", "embed_fsdp")
+    return (None,) * leaf.ndim

@@ -15,15 +15,22 @@ Counterpart of ``ray_tpu/train/train_step.py`` (``TrainState``,
 Unlike the JAX step, which returns a new state, the step here updates
 the model's parameters and the optimizer moments in place.  The update
 runs as a handful of ``torch._foreach_*`` calls over all parameters.
-The sharded step (``make_sharded_train_step``, ``shard_state``) arrives
-with the distributed slice of the port.
+
+The sharded step: ``shard_state`` turns the parameters and both AdamW
+moments into DTensors placed by the model's logical parameter axes
+(``gpt2_param_axes`` / ``llama_param_axes``) through ``ShardingRules``;
+``make_sharded_train_step`` runs the same loss, clip and AdamW on them.
+The gradients are brought to their parameters' placements (DTensor's
+reduce-scatter or all-reduce over the batch axes), the clip uses the
+norm of the whole gradient (one all-reduce of the shards' squared sums),
+and the update is elementwise on each rank's local shards.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,10 +80,14 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict,
-               params: List[torch.Tensor]) -> torch.Tensor:
+               params: List[torch.Tensor],
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update to ``params`` and ``state`` in place (``grads``
-        are clipped in place too).  Returns the pre-clip global norm."""
-        norm = global_norm(grads)
+        are clipped in place too).  Returns the pre-clip global norm,
+        ``norm`` when the caller gives it (the sharded step passes the
+        norm of the whole gradient and its local shards)."""
+        if norm is None:
+            norm = global_norm(grads)
         clip = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
         torch._foreach_mul_(grads, clip)
         b1, b2 = self.b1, self.b2
@@ -142,3 +153,145 @@ def make_train_step(loss_fn: Callable, optimizer: ClippedAdamW
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return step
+
+
+# ------------------------------------------------------------- sharded
+def shard_state(state: TrainState, mesh, param_axes_fn, rules=None
+                ) -> TrainState:
+    """Place the parameters AND both optimizer moments as DTensors on
+    ``mesh``, each with the sharding of ``param_axes_fn(path, leaf)``
+    through ``rules`` (moments mirror their parameters).  ``path`` is the
+    flax-style name, e.g. ``h_0/c_attn/kernel``.  Every rank holds the
+    full values (a deterministic init) and keeps its own slices.  The
+    state is updated in place and returned."""
+    from ..parallel.sharding import shard_pytree
+
+    return place_state(state, shard_pytree(
+        dict(state.model.named_parameters()), mesh, param_axes_fn, rules))
+
+
+def place_state(state: TrainState, placed) -> TrainState:
+    """Swap the model's parameters for ``placed`` ({state_dict name:
+    DTensor}) and place both moments as their parameters are."""
+    model = state.model
+    for name, value in placed.items():
+        if value.shape != model.get_parameter(name).shape:
+            raise ValueError(f"parameter {name} may not be split over the "
+                             "replica axes (dcn, data)")
+        module_name, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(module_name), leaf,
+                nn.Parameter(value.detach()))
+    params = list(model.parameters())
+    for key in ("mu", "nu"):
+        state.opt_state[key] = [_like_param(m, p) for m, p in
+                                zip(state.opt_state[key], params)]
+    return state
+
+
+def _like_param(tensor: torch.Tensor, param) -> torch.Tensor:
+    """``tensor`` (full value) placed as ``param`` is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(tensor.detach(), param.device_mesh,
+                             list(param.placements), src_data_rank=None)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def sharded_global_norm(grads: List[torch.Tensor],
+                        replicas: int = 1) -> torch.Tensor:
+    """The norm of the whole gradient from DTensor shards, the same in
+    each of ``replicas`` replica groups of the gang: each rank sums its
+    shards' squares, a replicated shard counted once per copy (divided
+    by its replication), and one all-reduce over the gang adds the
+    ranks' sums."""
+    import torch.distributed as dist
+
+    sums = []
+    for g in grads:
+        copies = replicas
+        for i, placement in enumerate(g.placements):
+            if placement.is_replicate():
+                copies *= g.device_mesh.size(i)
+        local = g.to_local().float()
+        sums.append((local * local).sum() / copies)
+    total = torch.stack(sums).sum()
+    dist.all_reduce(total)
+    return total.sqrt()
+
+
+def make_sharded_train_step(loss_fn: Callable, optimizer: ClippedAdamW,
+                            mesh):
+    """``make_train_step`` for a state placed by ``shard_state`` on
+    ``mesh``, with the batch a DTensor (``train.distributed.
+    put_global_batch`` or ``parallel.sharding.distribute``).  Returns
+    step(state, batch) -> (state, {"loss", "grad_norm"}), the metrics
+    plain tensors with the same value on every rank.  Each replica group
+    (the ``dcn`` x ``data`` axes, outside DTensor) takes the mean loss of
+    its own rows; the step averages gradients and loss over the groups.
+
+    The JAX step's ``donate`` and ``state_shardings`` have nothing to do
+    here: the update is in place, and the DTensors carry their
+    placements.  Its goodput/xprof telemetry is the no-op hook
+    ``_step_phase``; the port's telemetry plane is a later slice."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import replica_axes
+
+    replicas = [] if mesh is None else [
+        (mesh.get_group(a), mesh.size(mesh.mesh_dim_names.index(a)))
+        for a in replica_axes(mesh)]
+    n_replicas = 1
+    for _group, size in replicas:
+        n_replicas *= size
+
+    def replica_mean(tensors: List[torch.Tensor]) -> None:
+        """Average over the replica groups (each computed the mean loss
+        of its own batch rows), in place, one all-reduce per axis."""
+        if not replicas:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        for group, _size in replicas:
+            dist.all_reduce(flat, group=group)
+        flat /= n_replicas
+        for t, f in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(f.view_as(t))
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        params = list(state.model.parameters())
+        with _step_phase(state.step):
+            loss = loss_fn(state.model, batch)
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                grads = [g.redistribute(p.device_mesh, p.placements)
+                         for g, p in zip(grads, params)]
+                replica_mean([_local(g) for g in grads])
+                norm = sharded_global_norm(grads, n_replicas)
+                opt = state.opt_state
+                local = {"count": opt["count"],
+                         "mu": [_local(m) for m in opt["mu"]],
+                         "nu": [_local(v) for v in opt["nu"]]}
+                optimizer.update([_local(g) for g in grads], local,
+                                 [_local(p) for p in params], norm=norm)
+                opt["count"] = local["count"]
+        state.step += 1
+        loss = loss.full_tensor() if isinstance(loss, DTensor) else loss
+        loss = loss.detach().reshape(1)
+        replica_mean([loss])
+        return state, {"loss": loss[0], "grad_norm": norm}
+
+    return step
+
+
+def _step_phase(step: int):
+    """No-op hook where the JAX step times each call into the goodput
+    ledger (compile vs compute) and registers the compiled program with
+    xprof."""
+    import contextlib
+
+    return contextlib.nullcontext()

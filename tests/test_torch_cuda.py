@@ -16,6 +16,7 @@ float32.
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -23,12 +24,15 @@ import torch
 from ray_tpu_torch.llm.engine import EngineConfig, GenerationEngine
 from ray_tpu_torch.llm.kv_cache import paged_store
 from ray_tpu_torch.llm.sampling import SamplingParams
+from ray_tpu_torch.models import gpt2 as _gpt2
 from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss_fn
 from ray_tpu_torch.models.llama import LlamaConfig, llama_init
 from ray_tpu_torch.ops import _kernels
 from ray_tpu_torch.ops import flash_attention as attention
 from ray_tpu_torch.ops import flash_attention_with_lse as attention_with_lse
-from ray_tpu_torch.ops.flash_attention import flash_dq_plain, flash_fwd_plain
+from ray_tpu_torch.ops.flash_attention import (flash_dkv_plain,
+                                               flash_dq_plain,
+                                               flash_fwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +142,112 @@ def test_flash_attention_with_lse_cotangent_on_card_matches_plain(card):
 
     for g, p, r in zip(got, cpu(torch.bfloat16), cpu(torch.float32)):
         _close(g.cpu(), p, r)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_cotangent_mid_shape_on_card(card, causal):
+    """Ring attention's backward: random dO and a random lse cotangent
+    at B4 T512 H8 through the kernels (autograd), against the plain
+    versions on the card in bf16 and float32, every output and
+    gradient."""
+    b, t, h, d = 4, 512, 8, 64
+    q, k, v = _qkv(card, b=b, t=t, h=h, seed=7)
+    gen = torch.Generator(device=card).manual_seed(8)
+    do = torch.randn((b, t, h, d), generator=gen, device=card).to(
+        torch.bfloat16)
+    dlse = torch.randn((b, t, h), generator=gen, device=card)
+    o, lse = attention_with_lse(q, k, v, causal=causal, block_q=t,
+                                block_k=t)
+    got = [o.detach(), lse.detach(),
+           *torch.autograd.grad((o, lse), (q, k, v), (do, dlse))]
+
+    def plain(q, k, v, do):
+        kw = dict(scale=d ** -0.5, causal=causal, block_q=t, block_k=t)
+        out, lse = flash_fwd_plain(q, k, v, **kw)
+        delta = ((do.float() * out.float()).sum(-1) - dlse).transpose(
+            1, 2).contiguous()
+        dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+        return [out, lse.transpose(1, 2),
+                flash_dq_plain(q, k, v, do, lse, delta, **kw), dk, dv]
+
+    xs = [x.detach() for x in (q, k, v, do)]
+    for g, p, r in zip(got, plain(*xs), plain(*(x.float() for x in xs))):
+        _close(g, p, r)
+
+
+@pytest.fixture
+def nccl_gang(card, tmp_path):
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.train.distributed import setup_distributed_mesh
+
+    gang = setup_distributed_mesh(rank=0, world=1, device=card,
+                                  init_method=f"file://{tmp_path}/gang")
+    yield gang
+    col.destroy_collective_group(gang.group_name)
+
+
+def test_nccl_group_ops_stay_on_the_device(nccl_gang):
+    """The NCCL group of a world-1 gang: every collective returns a new
+    CUDA tensor and leaves its input alone; a CPU tensor raises."""
+    from ray_tpu_torch import collective as col
+
+    name = nccl_gang.group_name
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    for out in (col.allreduce(x, name), col.allreduce(x, name, "mean"),
+                col.reducescatter(x, name), col.broadcast(x, 0, name),
+                *col.allgather(x, name)):
+        assert out.is_cuda and torch.equal(out, x) and out is not x
+    col.barrier(name)
+    assert col.get_group(name).backend == "nccl"
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        col.allreduce(x.cpu(), name)
+
+
+def test_world1_nccl_sharded_step_matches_unsharded(nccl_gang):
+    """Two steps of the sharded GPT-2 step (a world-1 NCCL gang, DTensor
+    state, ring attention over the one-device seq axis) against the
+    unsharded flash step on the same bf16 weights and tokens.  The
+    attention output is bit-equal; loss and grad norm agree within 1e-5
+    relative, the parameters within 1e-5."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from ray_tpu_torch.parallel.sharding import (ShardingRules, distribute,
+                                                 logical_sharding)
+    from ray_tpu_torch.train import train_step as ts
+
+    mesh = create_mesh(MeshSpec(), device="cuda")
+    base = GPT2Config(vocab_size=512, n_layer=2, n_head=2, d_model=128,
+                      d_ff=256, max_seq=128)
+    runs = []
+    for cfg in (dataclasses.replace(base, attn_impl="flash"),
+                dataclasses.replace(base, attn_impl="ring", mesh=mesh,
+                                    rules=ShardingRules())):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = gpt2_init(cfg, gen, device="cuda")
+        tokens = torch.randint(0, 512, (2, 129), generator=gen,
+                               device="cuda")
+        opt = ts.make_optimizer(total_steps=10, warmup_steps=1)
+        state = ts.TrainState.create(model, opt)
+        loss = functools.partial(gpt2_loss_fn, cfg)
+        if cfg.mesh is None:
+            step = ts.make_train_step(loss, opt)
+            batch = {"tokens": tokens}
+        else:
+            state = ts.shard_state(state, mesh,
+                                   _gpt2.gpt2_param_axes, cfg.rules)
+            step = ts.make_sharded_train_step(loss, opt, mesh)
+            batch = {"tokens": distribute(tokens, logical_sharding(
+                mesh, ("batch", None)))}
+        metrics = [step(state, batch)[1] for _ in range(2)]
+        params = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+                  for n, p in model.named_parameters()}
+        runs.append((metrics, params))
+    (plain, plain_params), (sharded, sharded_params) = runs
+    for a, b in zip(plain, sharded):
+        for key in ("loss", "grad_norm"):
+            assert float(b[key]) == pytest.approx(float(a[key]), rel=1e-5)
+    for n, p in plain_params.items():
+        torch.testing.assert_close(sharded_params[n], p, rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_kernels_reject_what_they_do_not_take(card):

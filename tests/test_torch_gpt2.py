@@ -150,10 +150,16 @@ def test_flops_per_token_match_jax(cfg):
 
 def test_later_slices_raise_not_implemented():
     _jcfg, tcfg = _configs()
-    for change in ({"attn_impl": "ring"}, {"attn_impl": "ulysses"},
-                   {"moe_num_experts": 4}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tgpt2.GPT2(dataclasses.replace(tcfg, **change), device="cpu")
+    # MoE waits for the expert-parallel slice; ring/Ulysses attention
+    # (the distributed slice) need a mesh, as in the JAX model.
+    with pytest.raises(NotImplementedError, match="slice"):
+        tgpt2.GPT2(dataclasses.replace(tcfg, moe_num_experts=4),
+                   device="cpu")
+    for impl in ("ring", "ulysses"):
+        cfg = dataclasses.replace(tcfg, attn_impl=impl)
+        model = tgpt2.gpt2_init(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="needs cfg.mesh"):
+            model(torch.zeros(1, 4, dtype=torch.long))
     # Decode mode (the serving slice) runs: logits, and the same pool
     # tensors written in place, from the model and from one block.
     model = tgpt2.gpt2_init(tcfg, torch.Generator().manual_seed(0), "cpu")

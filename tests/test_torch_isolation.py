@@ -68,6 +68,15 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.llm, ray_tpu_torch.llm.engine\n"
         "import ray_tpu_torch.llm.kv_cache, ray_tpu_torch.llm.sampling\n"
         "import ray_tpu_torch.llm.serving\n"
+        "import ray_tpu_torch.collective, ray_tpu_torch.dryrun\n"
+        "import ray_tpu_torch.collective.collective_group.cpu_group\n"
+        "import ray_tpu_torch.collective.collective_group.nccl_group\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh\n"
+        "import ray_tpu_torch.parallel.sharding\n"
+        "import ray_tpu_torch.parallel.partition_rules\n"
+        "import ray_tpu_torch.parallel.ring_attention\n"
+        "import ray_tpu_torch.parallel.ulysses, ray_tpu_torch.testing\n"
+        "import ray_tpu_torch.train.distributed\n"
         "print(sorted(bad() - before))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -76,12 +85,28 @@ def test_import_adds_no_jax_or_ray_tpu_module():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_subpackages_are_covered_by_the_source_scan():
+    """The scan above walks every module of the port, the slices that
+    came later included."""
+    files = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    for module in ("collective/__init__.py", "collective/types.py",
+                   "collective/collective_group/cpu_group.py",
+                   "collective/collective_group/nccl_group.py",
+                   "parallel/mesh.py", "parallel/sharding.py",
+                   "parallel/partition_rules.py",
+                   "parallel/ring_attention.py", "parallel/ulysses.py",
+                   "train/distributed.py", "dryrun.py", "testing.py"):
+        assert module in files
+
+
 def test_no_device_means_cuda_or_raise(monkeypatch):
+    from ray_tpu_torch import collective as col
     from ray_tpu_torch.device import resolve_device
     from ray_tpu_torch.llm.engine import GenerationEngine
     from ray_tpu_torch.llm.kv_cache import init_cache
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_init
     from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
+    from ray_tpu_torch.train.distributed import setup_distributed_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -91,7 +116,9 @@ def test_no_device_means_cuda_or_raise(monkeypatch):
                   lambda: Llama(lcfg), lambda: llama_init(lcfg),
                   lambda: GenerationEngine(model_cfg=cfg),
                   lambda: GenerationEngine(model="llama"),
-                  lambda: init_cache(1, 1, 1, 1, 1, torch.float32)):
+                  lambda: init_cache(1, 1, 1, 1, 1, torch.float32),
+                  lambda: setup_distributed_mesh(rank=0, world=1),
+                  lambda: col.init_collective_group(1, 0, backend="nccl")):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     assert resolve_device("cpu") == torch.device("cpu")

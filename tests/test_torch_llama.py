@@ -176,11 +176,17 @@ def test_config_and_flops_match_jax(cfg):
 
 def test_later_slices_raise_not_implemented():
     _jcfg, tcfg = _configs()
-    for change in ({"attn_impl": "ring"}, {"attn_impl": "ulysses"},
-                   {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tllama.Llama(dataclasses.replace(tcfg, **change), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tllama.llama_partition_rules()
-    with pytest.raises(NotImplementedError, match="slice"):
-        tllama.llama_param_axes("embed", torch.zeros(2, 2))
+    # The distributed slice brought ring/Ulysses attention, which need a
+    # mesh as in the JAX model, and the partition rules (held to JAX's in
+    # tests/test_torch_parallel.py).
+    for impl in ("ring", "ulysses"):
+        cfg = dataclasses.replace(tcfg, attn_impl=impl)
+        model = tllama.llama_init(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+        with pytest.raises(ValueError, match="needs cfg.mesh"):
+            model(torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(ValueError, match="attn_impl"):
+        tllama.Llama(dataclasses.replace(tcfg, attn_impl="flash"),
+                     device="cpu")
+    assert tllama.llama_param_axes("embed", torch.zeros(2, 2)) == \
+        ("vocab", "embed_fsdp")
