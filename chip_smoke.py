@@ -65,6 +65,7 @@ device-time breakdown of two more training steps, unsharded and sharded
 (see ``profile_steps``).
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -460,33 +461,19 @@ def check_lse_cotangent(b, t, h, d, causal, seed):
                                f"over tolerance {tol}")
 
 
-def sharded_path(card: str, unsharded: dict, profile: bool = False):
-    """[sharded] The main path's step sharded: ``setup_distributed_mesh``
-    joins a world-1 NCCL gang, ``shard_state`` places GPT-2 124M (bf16,
-    remat, ring attention over the one-device ``seq`` axis) as DTensors,
-    and ``make_sharded_train_step`` takes 1 warm and 10 timed steps at
-    B16 T1024 on the main path's weights and batch (seed 0).  The loss
-    under a mesh is the full-logits one, as in the JAX package.  Checks:
-    the first loss within 1e-2 of the unsharded step's, finite loss and
-    grad norm every step, launches exactly 24/12/12 a step.  Returns the
-    launch counts."""
+@contextlib.contextmanager
+def world1_gang():
+    """A world-1 NCCL gang (``setup_distributed_mesh``) through a
+    ``file://`` store in a temporary directory; yields the all-axes
+    mesh (``create_mesh(MeshSpec())``) and leaves the gang on exit."""
     import tempfile
 
     import torch
 
     from ray_tpu_torch import collective as col
-    from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
-                                           gpt2_loss_fn, gpt2_param_axes)
-    from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.parallel.mesh import MeshSpec, create_mesh
-    from ray_tpu_torch.parallel.sharding import (ShardingRules, distribute,
-                                                 logical_sharding)
     from ray_tpu_torch.train.distributed import setup_distributed_mesh
-    from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
-                                                make_sharded_train_step,
-                                                shard_state)
 
-    batch, warm, steps = 16, 1, 10
     with tempfile.TemporaryDirectory() as rendezvous:
         gang = setup_distributed_mesh(rank=0, world=1, device="cuda",
                                       init_method=f"file://{rendezvous}/gang")
@@ -494,44 +481,92 @@ def sharded_path(card: str, unsharded: dict, profile: bool = False):
             print(f"  gang {gang.group_name!r}: world {gang.world}, mesh "
                   f"{gang.axis_sizes}, backend "
                   f"{torch.distributed.get_backend()}")
-            mesh = create_mesh(MeshSpec(), device="cuda")
-            rules = ShardingRules()
-            cfg = GPT2Config(**GPT2_124M, remat=True, attn_impl="ring",
-                             mesh=mesh, rules=rules)
-            gen = torch.Generator(device="cuda").manual_seed(0)
-            model = gpt2_init(cfg, gen, device="cuda")
-            tokens = torch.randint(0, cfg.vocab_size,
-                                   (batch, cfg.max_seq + 1), generator=gen,
-                                   device="cuda")
-            optimizer = make_optimizer(total_steps=1000)
-            state = shard_state(TrainState.create(model, optimizer), mesh,
-                                gpt2_param_axes, rules)
-            step = make_sharded_train_step(
-                lambda m, b: gpt2_loss_fn(cfg, m, b), optimizer, mesh)
-            data = {"tokens": distribute(tokens, logical_sharding(
-                mesh, ("batch", None), rules))}
-            metrics = []
-            torch.cuda.reset_peak_memory_stats()
-            _kernels.reset_launches()
-            for _ in range(warm):
-                state, m = step(state, data)
-                metrics.append(m)
-            bounds = [torch.cuda.Event(enable_timing=True)
-                      for _ in range(steps + 1)]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            bounds[0].record()
-            for i in range(steps):
-                state, m = step(state, data)
-                bounds[i + 1].record()
-                metrics.append(m)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(_kernels.launches)
-            if profile:
-                profile_steps(step, state, data)
+            yield create_mesh(MeshSpec(), device="cuda")
         finally:
             col.destroy_collective_group(gang.group_name)
+
+
+def timed_steps(step, state, data, warm: int, steps: int):
+    """``warm`` then ``steps`` training steps back to back, a CUDA event
+    at each step boundary (no sync in the loop).  Returns (metrics of
+    every step, sorted per-step device ms of the timed ones, host-clock
+    seconds of the timed ones)."""
+    import torch
+
+    metrics = []
+    for _ in range(warm):
+        state, m = step(state, data)
+        metrics.append(m)
+    bounds = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bounds[0].record()
+    for i in range(steps):
+        state, m = step(state, data)
+        bounds[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return metrics, sorted(a.elapsed_time(b)
+                           for a, b in zip(bounds, bounds[1:])), wall
+
+
+def median(xs):
+    xs = sorted(xs)
+    return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+
+
+def check_finite(metrics):
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise RuntimeError(f"non-finite loss/grad_norm {losses} {norms}")
+    return losses, norms
+
+
+def sharded_path(card: str, unsharded: dict, mesh, profile: bool = False):
+    """[sharded] The main path's step sharded over ``mesh`` (a world-1
+    NCCL gang's): ``shard_state`` places GPT-2 124M (bf16, remat, ring
+    attention over the one-device ``seq`` axis) as DTensors, and
+    ``make_sharded_train_step`` takes 1 warm and 10 timed steps at B16
+    T1024 on the main path's weights and batch (seed 0).  The loss under
+    a mesh is the full-logits one, as in the JAX package.  Checks: the
+    first loss within 1e-2 of the unsharded step's, finite loss and grad
+    norm every step, launches exactly 24/12/12 a step.  Returns the
+    launch counts and what ``[checkpoint]`` goes on from: the config,
+    the state after the steps, the step function and the batch."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                           gpt2_loss_fn, gpt2_param_axes)
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel.sharding import (ShardingRules, distribute,
+                                                 logical_sharding)
+    from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
+                                                make_sharded_train_step,
+                                                shard_state)
+
+    batch, warm, steps = 16, 1, 10
+    rules = ShardingRules()
+    cfg = GPT2Config(**GPT2_124M, remat=True, attn_impl="ring", mesh=mesh,
+                     rules=rules)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = gpt2_init(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                           generator=gen, device="cuda")
+    optimizer = make_optimizer(total_steps=1000)
+    state = shard_state(TrainState.create(model, optimizer), mesh,
+                        gpt2_param_axes, rules)
+    step = make_sharded_train_step(
+        lambda m, b: gpt2_loss_fn(cfg, m, b), optimizer, mesh)
+    data = {"tokens": distribute(tokens, logical_sharding(
+        mesh, ("batch", None), rules))}
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    metrics, step_ms, wall = timed_steps(step, state, data, warm, steps)
+    counts = dict(_kernels.launches)
+    if profile:
+        profile_steps(step, state, data)
 
     total = warm + steps
     want = {"flash_fwd": 2 * cfg.n_layer * total,
@@ -539,31 +574,28 @@ def sharded_path(card: str, unsharded: dict, profile: bool = False):
             "flash_dq": cfg.n_layer * total}
     if counts != want:
         raise RuntimeError(f"kernel launches {counts}, expected {want}")
-    losses = [float(m["loss"]) for m in metrics]
-    norms = [float(m["grad_norm"]) for m in metrics]
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise RuntimeError(f"non-finite loss/grad_norm {losses} {norms}")
+    losses, norms = check_finite(metrics)
     gap = abs(losses[0] - unsharded["first_loss"])
     print(f"  first loss {losses[0]:.6f}, unsharded step's "
           f"{unsharded['first_loss']:.6f}: gap {gap:.3e} (limit 1e-2)")
     if not gap < 1e-2:
         raise RuntimeError("sharded first loss disagrees with the "
                            "unsharded step's")
-    step_ms = sorted(a.elapsed_time(b) for a, b in zip(bounds, bounds[1:]))
-    median = (step_ms[(steps - 1) // 2] + step_ms[steps // 2]) / 2
+    ms = median(step_ms)
     tok_s = batch * cfg.max_seq * steps / wall
     print(f"  losses {losses}")
     print(f"  grad_norms {norms}")
-    print(f"  {steps} steps: per-step device time median {median:.3f} ms "
+    print(f"  {steps} steps: per-step device time median {ms:.3f} ms "
           f"(min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}) against the "
           f"unsharded step's {unsharded['median_ms']:.3f} ms "
-          f"({median / unsharded['median_ms']:.4f}x); {tok_s:.1f} tokens/s "
+          f"({ms / unsharded['median_ms']:.4f}x); {tok_s:.1f} tokens/s "
           f"(host clock; unsharded {unsharded['tokens_per_s']:.1f}); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(card: {card})")
     print(f"  launches over {total} steps: {counts} "
           f"(per step 24 fwd / 12 dK,dV / 12 dQ)")
-    return counts
+    return counts, {"cfg": cfg, "state": state, "step": step, "data": data,
+                    "optimizer": optimizer}
 
 
 # [ring]: GPT-2's attention width at the context ring attention is for.
@@ -678,6 +710,433 @@ def ring_phase(card: str):
                 if not err <= tol:
                     raise RuntimeError(f"{kind} seq={world} {name}: error "
                                        f"{err} over tolerance {tol}")
+
+
+# [moe]: GPT-2 124M widths with Switch-Base-8's expert layout (8 experts
+# of d_ff 3072 in every other block) and the JAX package's routing
+# defaults (top-2, capacity factor 1.25, aux weight 0.01).
+MOE = dict(moe_num_experts=8, moe_every=2, moe_top_k=2,
+           moe_capacity_factor=1.25, moe_aux_weight=0.01)
+
+
+def moe_routing_at_init(model, inputs):
+    """The MoE blocks' aux losses and the share of (token, k)
+    assignments dropped by capacity, from one no-grad forward; each
+    block's routing is recomputed from its captured input."""
+    import torch
+
+    from ray_tpu_torch.ops.moe import _route
+
+    seen = []
+    hooks = [blk.moe_mlp.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for blk in model.blocks() if blk.use_moe]
+    try:
+        with torch.no_grad():
+            _logits, aux = model(inputs, return_aux=True)
+            dropped = total = 0
+            for mod, x in seen:
+                _i, slot, _g, cap, _a = _route(
+                    x.reshape(-1, x.shape[-1]), mod.router, mod.top_k,
+                    mod.capacity_factor, ())
+                dropped += int((slot == cap).sum())
+                total += slot.numel()
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(aux), dropped / total
+
+
+def moe_profile(step, state, data, n_experts: int, capacity: int,
+                n: int = 2) -> None:
+    """--profile: device time of the MoE products over ``n`` more steps,
+    by operator and input shapes (``torch.profiler``): the dispatch and
+    combine products (an operand with E*C rows or columns) apart from
+    the expert FFNs (batched over E) and every other product."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n):
+            step(state, data)
+        torch.cuda.synchronize()
+    sums = {"dispatch/combine": 0.0, "expert FFNs": 0.0,
+            "other products": 0.0, "everything else": 0.0}
+    rest = {}
+    ec = n_experts * capacity
+    for evt in prof.key_averages(group_by_input_shape=True):
+        # Operators only: each kernel's time counts once, under the
+        # operator that launched it.
+        if evt.device_type != DeviceType.CPU:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if not us:
+            continue
+        shapes = [tuple(x) for x in evt.input_shapes if x]
+        if evt.key in ("aten::mm", "aten::bmm", "aten::addmm"):
+            if any(ec in sh for sh in shapes):
+                sums["dispatch/combine"] += us
+            elif shapes and len(shapes[0]) == 3 and \
+                    shapes[0][0] == n_experts:
+                sums["expert FFNs"] += us
+            else:
+                sums["other products"] += us
+        else:
+            sums["everything else"] += us
+            rest[evt.key] = rest.get(evt.key, 0.0) + us
+    total = sum(sums.values())
+    print(f"  profile of {n} steps: kernel time {total / n / 1e3:.3f} "
+          f"ms/step")
+    for key, us in sums.items():
+        print(f"    {key}: {us / n / 1e3:.3f} ms/step "
+              f"({us / max(total, 1e-9):.4f})")
+    print("  everything else, the largest operators (ms/step):")
+    for key, us in sorted(rest.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {us / n / 1e3:9.3f}  {key}")
+
+
+def moe_phase(card: str, unsharded: dict, profile: bool = False):
+    """[moe] GPT-2 124M widths with MoE blocks (``MOE``), bf16, flash,
+    remat, B16 T1024, random weights and tokens from seed 0: 1 warm and
+    10 timed unsharded steps, then the world-1 NCCL sharded step on the
+    same weights and batch (ring attention over the one-device ``seq``
+    axis), 1 warm and 3 timed.  Checks: the init loss within 0.5 of
+    ln(V) + 0.01 aux, finite loss and grad norm every step, exactly
+    24/12/12 launches a step in both, the sharded first loss within 1e-2
+    of the unsharded one.  No MFU: ``flops_per_token`` does not count
+    the expert work."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                           gpt2_loss_fn, gpt2_param_axes)
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel.sharding import distribute, logical_sharding
+    from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
+                                                make_sharded_train_step,
+                                                make_train_step, shard_state)
+
+    batch = 16
+    cfg = GPT2Config(**GPT2_124M, **MOE, remat=True, attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = gpt2_init(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                           generator=gen, device="cuda")
+    aux, drop = moe_routing_at_init(model, tokens[:, :-1])
+    capacity = max(int(cfg.moe_capacity_factor * batch * cfg.max_seq
+                       / cfg.moe_num_experts), cfg.moe_top_k)
+    n_moe = sum(b.use_moe for b in model.blocks())
+    print(f"  at init: aux {aux:.6f} ({n_moe} MoE blocks), capacity "
+          f"{capacity} a expert, share of (token, k) assignments dropped "
+          f"{drop:.6f}")
+
+    def run(step, state, data, warm, steps):
+        _kernels.reset_launches()
+        metrics, step_ms, wall = timed_steps(step, state, data, warm, steps)
+        counts = dict(_kernels.launches)
+        total = warm + steps
+        want = {"flash_fwd": 2 * cfg.n_layer * total,
+                "flash_dkv": cfg.n_layer * total,
+                "flash_dq": cfg.n_layer * total}
+        if counts != want:
+            raise RuntimeError(f"kernel launches {counts}, expected {want}")
+        losses, norms = check_finite(metrics)
+        ms = median(step_ms)
+        print(f"    losses {losses}")
+        print(f"    grad_norms {norms}")
+        print(f"    {steps} timed steps: per-step device time median "
+              f"{ms:.3f} ms (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}); "
+              f"{batch * cfg.max_seq * steps / wall:.1f} tokens/s (host "
+              f"clock); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"    launches over {total} steps: {counts} (per step 24 fwd "
+              f"/ 12 dK,dV / 12 dQ)")
+        return losses, ms
+
+    optimizer = make_optimizer(total_steps=1000)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(lambda m, b: gpt2_loss_fn(cfg, m, b), optimizer)
+    data = {"tokens": tokens}
+    torch.cuda.reset_peak_memory_stats()
+    print("  unsharded:")
+    losses, ms = run(step, state, data, 1, 10)
+    want = math.log(cfg.vocab_size) + cfg.moe_aux_weight * aux
+    print(f"  first loss {losses[0]:.6f} against ln(V) + 0.01 aux "
+          f"{want:.6f} (limit 0.5); [main path] {unsharded['median_ms']:.3f}"
+          f" ms/step, {unsharded['tokens_per_s']:.1f} tokens/s "
+          f"(card: {card})")
+    if not abs(losses[0] - want) < 0.5:
+        raise RuntimeError("MoE init loss is not near ln(V) + aux")
+    if profile:
+        moe_profile(step, state, data, cfg.moe_num_experts, capacity)
+    del state, step, model
+    free_device_memory()
+
+    with world1_gang() as mesh:
+        scfg = dataclasses.replace(cfg, attn_impl="ring", mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        smodel = gpt2_init(scfg, gen, device="cuda")
+        state = shard_state(TrainState.create(smodel, optimizer), mesh,
+                            gpt2_param_axes)
+        sstep = make_sharded_train_step(
+            lambda m, b: gpt2_loss_fn(scfg, m, b), optimizer, mesh)
+        sdata = {"tokens": distribute(tokens, logical_sharding(
+            mesh, ("batch", None)))}
+        torch.cuda.reset_peak_memory_stats()
+        print("  sharded (world-1 NCCL gang, DTensor state):")
+        slosses, sms = run(sstep, state, sdata, 1, 3)
+    gap = abs(slosses[0] - losses[0])
+    print(f"  sharded first loss {slosses[0]:.6f}, unsharded {losses[0]:.6f}"
+          f": gap {gap:.3e} (limit 1e-2); sharded {sms:.3f} ms/step "
+          f"({sms / ms:.4f}x the unsharded step)")
+    if not gap < 1e-2:
+        raise RuntimeError("sharded MoE first loss disagrees")
+
+
+# [pipeline]: GPT-2 124M blocks split over S stages, hidden states of
+# B16 T1024 in M = 8 microbatches.
+PIPE = dict(batch=16, microbatches=8, seed=7)
+
+
+def pipeline_rank(rank: int, world: int, rendezvous: str):
+    """[pipeline] Stage ``rank`` of ``world`` on cuda:0: blocks
+    [rank * 12 / S, (rank + 1) * 12 / S) of the seed-0 GPT-2 124M (bf16,
+    flash, no block remat; ``checkpoint_stage`` recomputes each tick)
+    through ``pipeline_apply`` over a gloo group.  Returns its launches
+    and host-clock seconds, and on rank 0 the output, the input gradient
+    and every stage's parameter gradients gathered over the group
+    (float32 numpy)."""
+    import torch
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.dryrun import join
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+    torch.cuda.set_device(0)
+    group = join(rank, world, rendezvous, backend="gloo")
+    try:
+        cfg = GPT2Config(**GPT2_124M, remat=False, attn_impl="flash")
+        model = gpt2_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+        per = cfg.n_layer // world
+        blocks = model.blocks()[rank * per:(rank + 1) * per]
+        params = [p for b in blocks for p in b.parameters()]
+        x, dy = pipeline_inputs(cfg)
+
+        def stage(blks, h):
+            for b in blks:
+                h = b(h)
+            return h
+
+        x = x.requires_grad_()
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipeline_apply(stage, blocks, x,
+                           num_microbatches=PIPE["microbatches"],
+                           group=group, checkpoint_stage=True)
+        grads = torch.autograd.grad(y, [x] + params, dy)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(_kernels.launches)
+        flat = torch.cat([g.float().reshape(-1) for g in grads[1:]])
+        every = col.allgather(flat, "gang")
+        out = None
+        if rank == 0:
+            out = [y.detach().float().cpu().numpy(),
+                   grads[0].float().cpu().numpy(),
+                   torch.cat(every).cpu().numpy()]
+        return {"launches": counts, "seconds": seconds, "full": out}
+    finally:
+        col.destroy_collective_group("gang")
+
+
+def pipeline_inputs(cfg):
+    """Seed-7 hidden states [B, T, D] (bf16) and output cotangent."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(PIPE["seed"])
+    shape = (PIPE["batch"], cfg.max_seq, cfg.d_model)
+    return (torch.randn(shape, generator=gen, device="cuda"
+                        ).to(torch.bfloat16),
+            torch.randn(shape, generator=gen, device="cuda"
+                        ).to(torch.bfloat16))
+
+
+def pipeline_phase(card: str):
+    """[pipeline] S = 2 and 4 processes sharing the card (``dryrun.spawn``,
+    gloo, join timeout 300 s), each a stage of 12/S GPT-2 124M blocks,
+    B16 T1024 hidden states in M = 8 microbatches.  The output, the
+    input gradient and every parameter gradient gathered to rank 0 must
+    be as close to the float32 run of the 12 blocks in sequence (dense
+    attention) as the bf16 sequential run (flash) is, under the kernel
+    gate: within twice its error plus 2^-8 of the peak.  Every stage
+    runs each of the M + S - 1 ticks, so each rank must launch
+    2 (M + S - 1) 12/S forward kernels (the forward and its
+    recomputation) and (M + S - 1) 12/S of each backward kernel."""
+    import torch
+
+    from ray_tpu_torch.dryrun import spawn
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+
+    cfg = GPT2Config(**GPT2_124M, remat=False, attn_impl="flash")
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32, attn_impl="dense")
+    x, dy = pipeline_inputs(cfg)
+
+    def sequential(c):
+        model = gpt2_init(c, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+        params = [p for b in model.blocks() for p in b.parameters()]
+        xi = x.to(c.dtype).requires_grad_()
+        h = xi
+        for b in model.blocks():
+            h = b(h)
+        grads = torch.autograd.grad(h, [xi] + params, dy.to(c.dtype))
+        return [h.detach().float(), grads[0].float(),
+                torch.cat([g.float().reshape(-1) for g in grads[1:]])]
+
+    seq, ref = sequential(cfg), sequential(ref_cfg)
+    free_device_memory()
+    m = PIPE["microbatches"]
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        runs = spawn(pipeline_rank, world, timeout=300.0)
+        print(f"  S={world}: {world} processes on cuda:0 ran in "
+              f"{time.perf_counter() - t0:.1f} s")
+        ticks = (m + world - 1) * cfg.n_layer // world
+        want = {"flash_fwd": 2 * ticks, "flash_dkv": ticks,
+                "flash_dq": ticks}
+        for rank, run in enumerate(runs):
+            print(f"    rank {rank}: launches {run['launches']} (expected "
+                  f"{want}), {run['seconds']:.2f} s forward + backward "
+                  f"(host clock)")
+            if run["launches"] != want:
+                raise RuntimeError(f"pipeline S={world} rank {rank}: "
+                                   f"launches {run['launches']}, expected "
+                                   f"{want}")
+        for name, g, s1, r in zip(("output", "input grad", "param grads"),
+                                  runs[0]["full"], seq, ref):
+            g = torch.from_numpy(g).to("cuda")
+            err, err_seq = max_abs(g, r), max_abs(s1, r)
+            tol = 2 * err_seq + 2.0 ** -8 * float(r.abs().max())
+            print(f"    S={world} {name}: |pipe-ref| {err:.3e}  |seq-ref| "
+                  f"{err_seq:.3e}  tol {tol:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"pipeline S={world} {name}: error {err} "
+                                   f"over tolerance {tol}")
+        del runs
+    print(f"  (card: {card})")
+
+
+def checkpoint_phase(card: str, sharded: dict):
+    """[checkpoint] The ``[sharded]`` GPT-2 124M state after its steps
+    (float32 parameters, both AdamW moments, the step): ``save_sharded``
+    into a temporary directory; ``load_sharded`` onto the same world-1
+    mesh, every leaf bit-identical; a host restore (numpy) into an
+    unsharded TrainState, equal to the original's ``full_tensor()``;
+    ``restore_train_state`` of the mesh restore into a fresh state, and
+    one more step from it and from the original: equal losses, equal
+    parameters after it.  The seconds and GB/s are this machine's
+    disk."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models.gpt2 import GPT2, gpt2_param_axes
+    from ray_tpu_torch.parallel.partition_rules import named_tree_map
+    from ray_tpu_torch.train.distributed import (restore_train_state,
+                                                 train_state_tree)
+    from ray_tpu_torch.train.sharded_checkpoint import (load_sharded,
+                                                        save_sharded)
+    from ray_tpu_torch.train.train_step import TrainState, shard_state
+
+    cfg, state, step, data, optimizer = (
+        sharded[k] for k in ("cfg", "state", "step", "data", "optimizer"))
+    mesh = cfg.mesh
+    tree = train_state_tree(state)
+    work = tempfile.mkdtemp()
+    try:
+        path = f"{work}/checkpoint_{state.step:06d}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = save_sharded(path, tree, mesh=mesh,
+                             meta={"step": state.step})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_sharded(path, mesh=mesh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = load_sharded(path)
+        t_host = time.perf_counter() - t0
+        gb = saved["bytes"] / 1e9
+        print(f"  saved {saved['files']} files, {gb:.3f} GB in {t_save:.2f} "
+              f"s ({gb / t_save:.3f} GB/s); restored onto the mesh in "
+              f"{t_load:.2f} s ({gb / t_load:.3f} GB/s), on the host in "
+              f"{t_host:.2f} s ({gb / t_host:.3f} GB/s) (this machine's "
+              f"disk; card: {card})")
+
+        def same(name, a):
+            b, h = _at(back, name), _at(host, name)
+            if isinstance(a, DTensor):
+                full = a.full_tensor().cpu()
+                ok = a.placements == b.placements and torch.equal(
+                    a.to_local(), b.to_local()) and torch.equal(
+                    full, torch.from_numpy(h))
+            else:
+                ok = int(a) == int(b) == int(h)
+            if not ok:
+                raise RuntimeError(f"checkpoint leaf {name} differs")
+            return a
+
+        named_tree_map(same, tree)
+        plain = TrainState.create(
+            GPT2(dataclasses.replace(cfg, mesh=None, attn_impl="flash"),
+                 device="cuda"), optimizer)
+        restore_train_state(plain, host)
+        for (name, p), q in zip(plain.model.named_parameters(),
+                                state.model.parameters()):
+            if not torch.equal(p.detach(), q.full_tensor()):
+                raise RuntimeError(f"host-restored {name} differs")
+        print(f"  every leaf bit-identical: {len(tree['params'])} "
+              f"parameters, both moments, step {int(host['step'])} (mesh "
+              f"restore, host restore, and the host restore placed in an "
+              f"unsharded TrainState)")
+        del plain, host
+        free_device_memory()
+
+        fresh = shard_state(TrainState.create(GPT2(cfg, device="cuda"),
+                                              optimizer),
+                            mesh, gpt2_param_axes)
+        restore_train_state(fresh, back)
+        del back
+        _, m_orig = step(state, data)
+        _, m_back = step(fresh, data)
+        l_orig, l_back = float(m_orig["loss"]), float(m_back["loss"])
+        diff = [n for (n, a), b in zip(state.model.named_parameters(),
+                                       fresh.model.parameters())
+                if not torch.equal(a.to_local(), b.to_local())]
+        print(f"  next step: loss {l_orig:.6f} from the original, "
+              f"{l_back:.6f} from the restored state; parameters after it "
+              f"differ in {len(diff)} tensors")
+        if l_orig != l_back or diff:
+            raise RuntimeError(f"the restored state steps differently: "
+                               f"{l_orig} {l_back} {diff[:5]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _at(tree, name: str):
+    for part in name.split("/"):
+        tree = tree[part]
+    return tree
 
 
 # bench.py --serve-llm's engine configuration.
@@ -1063,18 +1522,35 @@ def main() -> int:
     for causal in (True, False):
         check_lse_cotangent(16, 1024, 12, 64, causal=causal, seed=6)
 
+    profile = "--profile" in sys.argv[1:]
     print("[main path] GPT-2 124M, B16 T1024, flash + remat, chunk 256")
-    counts, unsharded = main_path(card, profile="--profile" in sys.argv[1:])
+    counts, unsharded = main_path(card, profile=profile)
     free_device_memory()
 
     print("[sharded] GPT-2 124M, B16 T1024, world-1 NCCL gang, DTensor "
           "state, ring attention, full-logits loss")
-    sharded_path(card, unsharded, profile="--profile" in sys.argv[1:])
+    with world1_gang() as mesh:
+        _counts, sharded = sharded_path(card, unsharded, mesh,
+                                        profile=profile)
+        print("[checkpoint] the [sharded] state: save_sharded, load_sharded "
+              "onto the mesh and on the host, one more step from each")
+        checkpoint_phase(card, sharded)
+        del sharded
+    free_device_memory()
+
+    print("[moe] GPT-2 124M widths, 8 experts (d_ff 3072) in every other "
+          "block, top-2, capacity 1.25, bf16, flash + remat, B16 T1024")
+    moe_phase(card, unsharded, profile=profile)
     free_device_memory()
 
     print("[ring] ring (flash) and Ulysses attention, seq = 2 and 4 "
           "processes on one card, gloo, B4 T4096 H12 D64 bf16 causal")
     ring_phase(card)
+    free_device_memory()
+
+    print("[pipeline] GPipe over S = 2 and 4 processes on one card, gloo: "
+          "GPT-2 124M blocks, B16 T1024 hidden states, M = 8, bf16 flash")
+    pipeline_phase(card)
     free_device_memory()
 
     serving = []

@@ -16,4 +16,4 @@ The package import is kept light: submodules load on demand.
 """
 
 __all__ = ["collective", "device", "dryrun", "llm", "models", "ops",
-           "parallel", "train"]
+           "parallel", "train", "util"]

@@ -16,9 +16,12 @@ world size and its rank.  The first group a process joins creates the
 process's default ``torch.distributed`` group, the gang that
 ``parallel.mesh`` builds device meshes over; later groups with the same
 world size and rank are ``new_group``s of it, as every XLA group of a
-process shares one ``jax.distributed`` world.  The default group is torn
-down when the last group that the manager made is destroyed, so a name
-can be reused with a new rendezvous.
+process shares one ``jax.distributed`` world.  A later gloo group of
+another size or rank meets at its own ``init_method`` and gets a process
+group of its own (``standalone_gloo_group``), as each CPU group of the
+JAX package has its own rendezvous; NCCL groups must span the gang.
+The default group is torn down when the last group that the manager
+made is destroyed, so a name can be reused with a new rendezvous.
 
 ``create_collective_group(actors, ...)`` and the lazy join of a
 declared group need the runtime's actors and KV store, which arrive
@@ -81,14 +84,26 @@ class GroupManager:
                                     timeout=TIMEOUT)
             self._owns_world = True
             pg = dist.group.WORLD
-        else:
-            world = (dist.get_world_size(), dist.get_rank())
-            if world != (world_size, rank):
-                raise RuntimeError(
-                    f"this process's gang is (world, rank) {world}; group "
-                    f"{group_name!r} wants {(world_size, rank)}")
+        elif (dist.get_world_size(), dist.get_rank()) == (world_size, rank):
             pg = dist.new_group(list(range(world_size)),
                                 backend=backend.torch_name, timeout=TIMEOUT)
+        elif backend is Backend.CPU:
+            from .collective_group.base import standalone_gloo_group
+
+            if init_method is None:
+                raise ValueError(
+                    f"group {group_name!r} (world {world_size}, rank "
+                    f"{rank}) differs from this process's gang, so it "
+                    "meets at a rendezvous of its own: pass init_method")
+            pg = standalone_gloo_group(init_method, world_size, rank,
+                                       TIMEOUT)
+        else:
+            raise RuntimeError(
+                f"this process's gang is (world, rank) "
+                f"{(dist.get_world_size(), dist.get_rank())}; NCCL group "
+                f"{group_name!r} wants {(world_size, rank)}.  An NCCL "
+                "group must span the gang; groups of other sizes are gloo "
+                "(backend='cpu')")
         if backend is Backend.CPU:
             from .collective_group.cpu_group import CPUGroup
 

@@ -2,10 +2,13 @@
 ``torch.distributed`` process group.
 
 The ops are functional, as in the JAX package: each returns its result
-and leaves the input alone.  Ranks are the group's own (0..world-1);
-``torch.distributed`` takes global ranks, which ``_global`` maps to.
-Subclasses say where a tensor must lie for the backend (``_stage``) and
-where the result goes back to (``_unstage``).
+and leaves the input alone.  They call the process group's own methods
+with the group's ranks (0..world-1), so they run the same on a group of
+the process's default ``torch.distributed`` world and on a gloo group
+made apart from it (``standalone_gloo_group``), which the functional
+``torch.distributed`` API refuses.  Subclasses say where a tensor must
+lie for the backend (``_stage``) and where the result goes back to
+(``_unstage``).
 """
 
 from __future__ import annotations
@@ -58,9 +61,6 @@ class TorchGroup:
         """Where the backend receives."""
         raise NotImplementedError
 
-    def _global(self, group_rank: int) -> int:
-        return dist.get_global_rank(self.process_group, group_rank)
-
     def _gang_op(self, op: str, nbytes: int = 0):
         """No-op hook where the JAX groups stamp the gang-op telemetry
         (``collective/telemetry.py``); the port's telemetry plane is a
@@ -72,7 +72,9 @@ class TorchGroup:
         op = ReduceOp(op)
         with self._gang_op("allreduce", tensor.nbytes):
             x = self._stage(tensor)
-            dist.all_reduce(x, op=_TORCH_OPS[op], group=self.process_group)
+            opts = dist.AllreduceOptions()
+            opts.reduceOp = _TORCH_OPS[op]
+            self.process_group.allreduce([x], opts).wait()
             if op == ReduceOp.MEAN:
                 x = x / self.world_size
             return self._unstage(x, tensor)
@@ -81,7 +83,7 @@ class TorchGroup:
         with self._gang_op("allgather", tensor.nbytes):
             x = self._stage(tensor)
             parts = [torch.empty_like(x) for _ in range(self.world_size)]
-            dist.all_gather(parts, x, group=self.process_group)
+            self.process_group.allgather([parts], [x]).wait()
             return [self._unstage(p, tensor) for p in parts]
 
     def reducescatter(self, tensor, op: ReduceOp = ReduceOp.SUM):
@@ -93,11 +95,13 @@ class TorchGroup:
             n = self.world_size
             if x.dim() and x.shape[0] % n == 0:
                 out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-                dist.reduce_scatter_tensor(out, x, op=_TORCH_OPS[op],
-                                           group=self.process_group)
+                opts = dist.ReduceScatterOptions()
+                opts.reduceOp = _TORCH_OPS[op]
+                self.process_group._reduce_scatter_base(out, x, opts).wait()
             else:   # uneven pieces: reduce whole, keep this rank's
-                dist.all_reduce(x, op=_TORCH_OPS[op],
-                                group=self.process_group)
+                opts = dist.AllreduceOptions()
+                opts.reduceOp = _TORCH_OPS[op]
+                self.process_group.allreduce([x], opts).wait()
                 out = torch.tensor_split(x, n, dim=0)[self.rank]
             if op == ReduceOp.MEAN:
                 out = out / n
@@ -106,13 +110,14 @@ class TorchGroup:
     def broadcast(self, tensor, src_rank: int = 0):
         with self._gang_op("broadcast", tensor.nbytes):
             x = self._stage(tensor)
-            dist.broadcast(x, src=self._global(src_rank),
-                           group=self.process_group)
+            opts = dist.BroadcastOptions()
+            opts.rootRank = src_rank
+            self.process_group.broadcast([x], opts).wait()
             return self._unstage(x, tensor)
 
     def barrier(self) -> None:
         with self._gang_op("barrier"):
-            dist.barrier(group=self.process_group)
+            self.process_group.barrier(dist.BarrierOptions()).wait()
 
     def send(self, tensor, dst_rank: int) -> None:
         """Blocking send of a tensor of any shape and supported dtype;
@@ -126,28 +131,50 @@ class TorchGroup:
         header = torch.zeros(2 + _MAX_NDIM, dtype=torch.int64,
                              device=x.device)
         header[:len(head)] = torch.tensor(head, dtype=torch.int64)
-        dst = self._global(dst_rank)
-        dist.send(header, dst=dst, group=self.process_group)
-        dist.send(x, dst=dst, group=self.process_group)
+        self.process_group.send([header], dst_rank, 0).wait()
+        self.process_group.send([x], dst_rank, 0).wait()
 
     def recv(self, src_rank: int, timeout: float = 120.0) -> torch.Tensor:
         """Blocking receive from ``src_rank``, on the device the backend
         receives on; raises if nothing arrives within ``timeout``
         seconds."""
-        src = self._global(src_rank)
         wait = timedelta(seconds=timeout)
         header = torch.zeros(2 + _MAX_NDIM, dtype=torch.int64,
                              device=self._device())
-        dist.irecv(header, src=src, group=self.process_group).wait(wait)
+        self.process_group.recv([header], src_rank, 0).wait(wait)
         code, ndim, *shape = header.tolist()
         x = torch.empty(shape[:ndim], dtype=_DTYPES[code],
                         device=header.device)
-        dist.irecv(x, src=src, group=self.process_group).wait(wait)
+        self.process_group.recv([x], src_rank, 0).wait(wait)
         return x
 
     def destroy(self) -> None:
         """Leave the group.  A group made with ``new_group`` is torn
-        down here; the default group is left to the group manager."""
-        if self.process_group is not dist.group.WORLD:
-            dist.destroy_process_group(self.process_group)
+        down here; the default group is left to the group manager, and
+        a standalone gloo group goes with its last reference."""
+        pg = self.process_group
+        if pg is not dist.group.WORLD and not is_standalone(pg):
+            dist.destroy_process_group(pg)
         self.process_group = None
+
+
+def standalone_gloo_group(init_method: str, world_size: int, rank: int,
+                          timeout: timedelta):
+    """A gloo process group of its own, apart from the process's default
+    ``torch.distributed`` world: its members meet at ``init_method``
+    (``tcp://host:port`` or ``file:///path``), so a process can belong
+    to groups of other sizes than its gang (a pipeline group beside a
+    data group)."""
+    store, _rank, _world = next(dist.rendezvous(
+        init_method, rank, world_size, timeout=timeout))
+    return dist.ProcessGroupGloo(store, rank, world_size, timeout)
+
+
+def is_standalone(pg) -> bool:
+    """A group made by ``standalone_gloo_group`` (not registered with
+    the default world)."""
+    return isinstance(pg, dist.ProcessGroupGloo)
+
+
+def backend_name(pg) -> str:
+    return "gloo" if is_standalone(pg) else dist.get_backend(pg)

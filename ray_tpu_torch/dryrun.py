@@ -8,7 +8,8 @@ one process; here each rank is a process (``spawn``) in a gloo group on
 the CPU, since a DeviceMesh maps one device to one process.  The
 meshes are the JAX dry run's: ``{8: data2 x seq2 x tensor2, 4: data2 x
 seq2, 2: data2, 1: ()}``, and at 8 ranks the ``dcn2 x data2 x tensor2``
-variant; the expert-parallel variant arrives with the MoE slice.
+variant and the expert-parallel ``data2 x expert2 x tensor2`` variant
+(GPT-2 with an MoE block of 4 experts in every other layer).
 
 ``spawn(fn, world, *args)`` is the launcher: fresh interpreters (the
 ``spawn`` start method), a ``file://`` rendezvous in a directory of the
@@ -159,6 +160,8 @@ def sharded_steps(model_cfg, init_params, mesh_axes: dict, batches,
 
 
 def _dryrun_rank(rank: int, world: int, rendezvous: str):
+    import dataclasses
+
     import numpy as np
 
     from . import collective as col
@@ -187,6 +190,14 @@ def _dryrun_rank(rank: int, world: int, rendezvous: str):
                 dcn_cfg, None, dcn, [np.zeros((8, 33), np.int64)],
                 device="cpu", optimizer_kw=opt, loss_kw=dict(loss_chunk=0))
             out.append(("dcn", dcn, metrics[0]["loss"]))
+            # Expert-parallel variant: DP x EP x TP with MoE blocks.
+            ep = dict(data=2, expert=2, tensor=2)
+            ep_cfg = dataclasses.replace(dcn_cfg, moe_num_experts=4,
+                                         moe_every=2)
+            metrics, _ = sharded_steps(
+                ep_cfg, None, ep, [np.zeros((4, 33), np.int64)],
+                device="cpu", optimizer_kw=opt, loss_kw=dict(loss_chunk=0))
+            out.append(("ep", ep, metrics[0]["loss"]))
     finally:
         col.destroy_collective_group("gang")
     return out

@@ -5,8 +5,10 @@ The port keeps flax's parameter names and layouts (``Dense`` kernels
 nests the paths: ``{"params": {"h_0": {"c_attn": {"kernel": a}}}}`` <->
 ``{"h_0.c_attn.kernel": a}``.  The tree side holds numpy arrays, as
 ``jax.tree_util.tree_map(np.asarray, params)`` gives them.  Llama
-flattens the same way as GPT-2, so its pair is GPT-2's.  A sharded
-state dict (DTensors) converts to the same tree, gathered whole.
+flattens the same way as GPT-2, so its pair is GPT-2's, and an MoE
+block's ``h_<i>/moe_mlp/{router,w_in,w_out}`` goes the same way.  A
+sharded state dict (DTensors) converts to the same tree, gathered
+whole.
 """
 
 from __future__ import annotations

@@ -30,8 +30,12 @@ constrained to their logical axes after the embedding, around attention,
 in the MLP and after each block (``_constrain``); DTensor's sharding
 propagation inserts the collectives that GSPMD inserts in JAX.  Ring and
 Ulysses attention run on the local shards under ``local_map`` (JAX's
-``shard_map``).  MoE blocks raise NotImplementedError: they arrive with
-the expert-parallel slice of the port.
+``shard_map``).
+
+MoE configs (``moe_num_experts > 0``) put an ``ops.moe.MoEMLP`` in
+every ``moe_every``-th block in place of its MLP; the loss adds
+``moe_aux_weight`` times the blocks' Switch auxiliary losses.  Sharded,
+the experts split over the ``expert`` axis (``ops/moe.py``).
 """
 
 from __future__ import annotations
@@ -108,9 +112,10 @@ class GPT2Config:
 def _check_supported(cfg: GPT2Config) -> None:
     if cfg.attn_impl not in ("dense", "flash", "ring", "ulysses"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    if cfg.moe_num_experts > 0:
-        raise NotImplementedError(
-            "MoE blocks arrive with the expert-parallel slice of the port")
+
+
+def _uses_moe(cfg: GPT2Config, i: int) -> bool:
+    return cfg.moe_num_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
 
 
 def _constrain(x, logical, cfg):
@@ -212,21 +217,30 @@ def _attention(cfg, q, k, v):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, device):
+    def __init__(self, cfg: GPT2Config, device, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
         d, dt = cfg.d_model, cfg.dtype
         self.ln_1 = LayerNorm(d, dt, device)
         self.c_attn = Dense(d, 3 * d, dt, device)
         self.c_proj = Dense(d, d, dt, device)
         self.ln_2 = LayerNorm(d, dt, device)
-        self.mlp_in = Dense(d, cfg.d_ff, dt, device)
-        self.mlp_out = Dense(cfg.d_ff, d, dt, device)
+        if use_moe:
+            from ..ops.moe import MoEMLP
+
+            self.moe_mlp = MoEMLP(d, cfg.d_ff, cfg.moe_num_experts,
+                                  top_k=cfg.moe_top_k,
+                                  capacity_factor=cfg.moe_capacity_factor,
+                                  dtype=dt, device=device, mesh=cfg.mesh)
+        else:
+            self.mlp_in = Dense(d, cfg.d_ff, dt, device)
+            self.mlp_out = Dense(cfg.d_ff, d, dt, device)
 
     def forward(self, x, cache=None):
-        """x [B, T, D] -> [B, T, D]; in decode mode (``cache``: this
-        layer's entry of ``llm.kv_cache.layer_caches``) -> (out,
-        (k_pages, v_pages))."""
+        """x [B, T, D] -> [B, T, D], or (out, aux) for an MoE block; in
+        decode mode (``cache``: this layer's entry of
+        ``llm.kv_cache.layer_caches``) -> (out, (k_pages, v_pages))."""
         cfg = self.cfg
         h = cfg.n_head
         d_head = cfg.d_model // h
@@ -244,6 +258,10 @@ class Block(nn.Module):
                        for z in (q, k, v))
             att = _attention(cfg, q, k, v)
         x = x + self.c_proj(att.reshape(b, t, cfg.d_model))
+        if self.use_moe:
+            y, aux = self.moe_mlp(self.ln_2(x))
+            out = x + y
+            return (out, aux) if cache is None else (out, pages)
         y = _constrain(self.mlp_in(self.ln_2(x)), ("batch", "seq", "mlp"),
                        cfg)
         out = x + self.mlp_out(F.gelu(y, approximate="tanh"))
@@ -261,16 +279,18 @@ class GPT2(nn.Module):
         self.wpe = nn.Parameter(
             torch.empty(cfg.max_seq, cfg.d_model, device=device))
         for i in range(cfg.n_layer):
-            self.add_module(f"h_{i}", Block(cfg, device))
+            self.add_module(f"h_{i}", Block(cfg, device, _uses_moe(cfg, i)))
         self.ln_f = LayerNorm(cfg.d_model, cfg.dtype, device)
 
     def blocks(self):
         return [getattr(self, f"h_{i}") for i in range(self.cfg.n_layer)]
 
     def forward(self, tokens, return_hidden: bool = False,
-                kv_cache=None, positions=None):
+                kv_cache=None, positions=None, return_aux: bool = False):
         """tokens [B, T] -> logits [B, T, V] float32 (or the final hidden
-        state [B, T, D] in ``cfg.dtype`` with ``return_hidden``).
+        state [B, T, D] in ``cfg.dtype`` with ``return_hidden``); with
+        ``return_aux``, (that, the MoE blocks' summed auxiliary loss, 0
+        without MoE blocks), what the JAX model sows.
 
         Decode mode attends against the paged KV pool instead of
         recomputing the sequence: ``kv_cache`` is {"k_pages",
@@ -291,6 +311,7 @@ class GPT2(nn.Module):
         x = _constrain(x, ("batch", "seq", "embed"), cfg)
         # Decode steps are memory-light; remat would only slow them.
         remat = cfg.remat and torch.is_grad_enabled() and not decode
+        auxes = []
         for i, blk in enumerate(self.blocks()):
             if decode:
                 x, _ = blk(x, cache=caches[i])
@@ -300,13 +321,20 @@ class GPT2(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
                 x = blk(x)
+            if blk.use_moe and not decode:
+                x, aux = x
+                auxes.append(aux)
             x = _constrain(x, ("batch", "seq", "embed"), cfg)
         x = self.ln_f(x)
-        if return_hidden:
+        if not return_hidden:
+            x = _constrain(matmul_f32(x, wte.t()), ("batch", "seq", "vocab"),
+                           cfg)
+            if decode:
+                return x, kv_cache
+        if not return_aux:
             return x
-        logits = _constrain(matmul_f32(x, wte.t()), ("batch", "seq", "vocab"),
-                            cfg)
-        return (logits, kv_cache) if decode else logits
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return x, sum(auxes[1:], auxes[0]) if auxes else aux
 
 
 def gpt2_init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
@@ -326,8 +354,11 @@ def gpt2_init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
         for blk in model.blocks():
             blk.c_attn.kernel.normal_(0.0, 0.02, generator=generator)
             blk.c_proj.kernel.normal_(0.0, resid, generator=generator)
-            blk.mlp_in.kernel.normal_(0.0, 0.02, generator=generator)
-            blk.mlp_out.kernel.normal_(0.0, resid, generator=generator)
+            if blk.use_moe:
+                blk.moe_mlp.reset_parameters(generator)
+            else:
+                blk.mlp_in.kernel.normal_(0.0, 0.02, generator=generator)
+                blk.mlp_out.kernel.normal_(0.0, resid, generator=generator)
     return model
 
 
@@ -388,24 +419,26 @@ def gpt2_loss_fn(cfg: GPT2Config, model: GPT2, batch,
                  loss_chunk: int = 128) -> torch.Tensor:
     """Next-token cross entropy; batch: {"tokens": [B, T+1] ints}.
     Under a mesh the logits stay whole (the chunked loss is for one
-    device), as in the JAX model."""
+    device), as in the JAX model.  MoE configs add ``moe_aux_weight``
+    times the Switch auxiliary loss and keep the logits whole too."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:].long()
     t = inputs.shape[1]
+    moe = cfg.moe_num_experts > 0
     if loss_chunk and t % loss_chunk == 0 and t > loss_chunk \
-            and cfg.mesh is None:
+            and cfg.mesh is None and not moe:
         x = model(inputs, return_hidden=True)
         return chunked_xent(x, model.wte.to(cfg.dtype), targets, loss_chunk)
-    logits = model(inputs)
+    logits, aux = model(inputs, return_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+    loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    return loss + cfg.moe_aux_weight * aux if moe else loss
 
 
 def gpt2_partition_rules():
-    """Default fsdp+tensor partition rules for GPT-2 parameter trees, in
-    ``match_partition_rules`` form ((regex, PartitionSpec) pairs, first
-    match wins), over flax's slash-joined paths.  The MoE entries of the
-    JAX package's set arrive with the expert-parallel slice."""
+    """Default fsdp+tensor(+expert) partition rules for GPT-2 parameter
+    trees, in ``match_partition_rules`` form ((regex, PartitionSpec)
+    pairs, first match wins), over flax's slash-joined paths."""
     from ..parallel.sharding import PartitionSpec as PS
 
     return (
@@ -415,13 +448,21 @@ def gpt2_partition_rules():
         (r"c_proj/kernel$", PS("tensor", "fsdp")),
         (r"mlp_in/kernel$", PS("fsdp", "tensor")),
         (r"mlp_out/kernel$", PS("tensor", "fsdp")),
+        (r"moe_mlp/w_in$", PS("expert", "fsdp", "tensor")),
+        (r"moe_mlp/w_out$", PS("expert", "tensor", "fsdp")),
+        (r"moe_mlp/router$", PS("fsdp", None)),
         (r"(bias|scale)$", PS()),
     )
 
 
 def gpt2_param_axes(path: str, leaf) -> Tuple[Optional[str], ...]:
     """Logical axes per parameter path, for ``shard_pytree`` and
-    ``train_step.shard_state`` (DP/FSDP/TP)."""
+    ``train_step.shard_state`` (DP/FSDP/TP/EP)."""
+    from ..ops.moe import moe_param_axes
+
+    moe = moe_param_axes(path, leaf)
+    if moe is not None:
+        return moe
     if "wte" in path:
         return ("vocab", "embed_fsdp")
     if "wpe" in path:

@@ -50,18 +50,27 @@ def _post_shift(xs, group, shift: int):
     """Send each tensor to rank + shift and receive from rank - shift.
     Returns (received tensors, works to wait on before reading them).
     On gloo a CUDA tensor goes through host memory and the exchange
-    completes here."""
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
-    dst = dist.get_global_rank(group, (rank + shift) % n)
-    src = dist.get_global_rank(group, (rank - shift) % n)
-    staged = dist.get_backend(group) == "gloo" and xs[0].is_cuda
+    completes here; gloo goes through the group's own send/recv (ranks
+    of the group), so a standalone gloo group rotates too."""
+    from ..collective.collective_group.base import backend_name
+
+    n, rank = group.size(), group.rank()
+    dst, src = (rank + shift) % n, (rank - shift) % n
+    gloo = backend_name(group) == "gloo"
+    staged = gloo and xs[0].is_cuda
     sends = [(x.detach().cpu() if staged else x.detach()).contiguous()
              for x in xs]
     recvs = [torch.empty_like(s) for s in sends]
-    ops = [op for s, r in zip(sends, recvs) for op in (
-        dist.P2POp(dist.isend, s, dst, group),
-        dist.P2POp(dist.irecv, r, src, group))]
-    works = dist.batch_isend_irecv(ops)
+    if gloo:
+        works = [group.send([s], dst, 0) for s in sends] + \
+            [group.recv([r], src, 0) for r in recvs]
+    else:
+        dst = dist.get_global_rank(group, dst)
+        src = dist.get_global_rank(group, src)
+        works = dist.batch_isend_irecv([op for s, r in zip(sends, recvs)
+                                        for op in (
+            dist.P2POp(dist.isend, s, dst, group),
+            dist.P2POp(dist.irecv, r, src, group))])
     if not staged:
         # The sends must stay alive until the works complete.
         return recvs, [(w, sends) for w in works]
@@ -137,26 +146,54 @@ def _merge(num, den, m, num2, den2, m2):
             den * a1 + den2 * a2, m_new)
 
 
+def _steps(checkpoint_steps: bool):
+    """How a ring step's block compute runs: as it is, or under
+    ``torch.utils.checkpoint`` so its backward recomputes it.  Only the
+    compute: the rotation stays outside, so the recompute sends
+    nothing."""
+    if not checkpoint_steps:
+        return lambda fn, *args: fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def ring_attention(q, k, v, *, group=None, causal: bool = True,
-                   scale: Optional[float] = None, impl: str = "flash",
+                   scale: Optional[float] = None,
+                   checkpoint_steps: Optional[bool] = None,
+                   impl: str = "flash",
                    block_q: int = 256, block_k: int = 256):
     """Attention over a sequence sharded on ``group`` (the ``seq`` axis's
     process group; see ``process_group``).
 
     q, k, v: this rank's shard [B, T_local, H, D], rank r holding
     positions [r * T_local, (r + 1) * T_local).  Returns the local output
-    shard, same shape and dtype as q."""
+    shard, same shape and dtype as q.
+
+    ``checkpoint_steps`` recomputes each step's block compute in the
+    backward.  It defaults per impl, as in the JAX package: False for
+    flash (the kernels keep only O(T_local) residuals per step) and True
+    for lax (whose step holds [Tq, Tk] score blocks)."""
     group = process_group(group)
     if impl == "flash":
         return _ring_flash(q, k, v, group=group, causal=causal, scale=scale,
+                           run=_steps(bool(checkpoint_steps)),
                            block_q=block_q, block_k=block_k)
     if impl != "lax":
         raise ValueError(f"unknown ring attention impl {impl!r}")
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    run = _steps(checkpoint_steps is None or checkpoint_steps)
+    n, rank = group.size(), group.rank()
     b, t_local, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
     q32 = q.float()
+
+    def step(k_blk, v_blk, num, den, m, kv_off):
+        num2, den2, m2 = _block_attn(
+            q32, k_blk.float(), v_blk.float(), q_off=rank * t_local,
+            kv_off=kv_off, causal=causal, scale=scale)
+        return _merge(num, den, m, num2, den2, m2)
+
     num = q32.new_zeros((b, t_local, h, d))
     den = q32.new_zeros((b, t_local, h))
     m = q32.new_full((b, t_local, h), _NEG_INF)
@@ -164,10 +201,7 @@ def ring_attention(q, k, v, *, group=None, causal: bool = True,
     for i in range(n):
         k_blk, v_blk = kv
         src = (rank - i) % n      # whose block we currently hold
-        num2, den2, m2 = _block_attn(
-            q32, k_blk.float(), v_blk.float(), q_off=rank * t_local,
-            kv_off=src * t_local, causal=causal, scale=scale)
-        num, den, m = _merge(num, den, m, num2, den2, m2)
+        num, den, m = run(step, k_blk, v_blk, num, den, m, src * t_local)
         if i < n - 1:
             kv = _Shift.apply(group, pending, k_blk, v_blk)
             _wait(pending)
@@ -176,7 +210,7 @@ def ring_attention(q, k, v, *, group=None, causal: bool = True,
 
 
 def _ring_flash(q, k, v, *, group, causal: bool, scale: Optional[float],
-                block_q: int, block_k: int):
+                run, block_q: int, block_k: int):
     """Each step runs the flash kernel on (Q_local, K/V block) and merges
     the normalised partials by their log-sum-exps:
         lse' = logaddexp(lse_acc, lse_blk)
@@ -185,10 +219,20 @@ def _ring_flash(q, k, v, *, group, causal: bool, scale: Optional[float],
     later blocks are skipped."""
     from ..ops.flash_attention import flash_attention_with_lse
 
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    n, rank = group.size(), group.rank()
     b, t_local, h, d = q.shape
     if scale is not None and abs(scale - d ** -0.5) > 1e-9:
         raise ValueError("flash impl uses the standard 1/sqrt(d) scale")
+
+    def step(k_blk, v_blk, out, lse, blk_causal):
+        out_blk, lse_blk = flash_attention_with_lse(
+            q, k_blk, v_blk, causal=blk_causal,
+            block_q=block_q, block_k=block_k)
+        lse_new = torch.logaddexp(lse, lse_blk)
+        return (out * torch.exp(lse - lse_new)[..., None]
+                + out_blk.float() * torch.exp(lse_blk - lse_new)[..., None],
+                lse_new)
+
     out = q.new_zeros((b, t_local, h, d), dtype=torch.float32)
     lse = q.new_full((b, t_local, h), _NEG_INF, dtype=torch.float32)
     kv, pending = (k, v), []
@@ -202,13 +246,8 @@ def _ring_flash(q, k, v, *, group, causal: bool, scale: Optional[float],
         if causal and src > rank:
             out, lse = _Skip.apply(out, lse, k_blk, v_blk)
         else:
-            out_blk, lse_blk = flash_attention_with_lse(
-                q, k_blk, v_blk, causal=causal and src == rank,
-                block_q=block_q, block_k=block_k)
-            lse_new = torch.logaddexp(lse, lse_blk)
-            out = (out * torch.exp(lse - lse_new)[..., None]
-                   + out_blk.float() * torch.exp(lse_blk - lse_new)[..., None])
-            lse = lse_new
+            out, lse = run(step, k_blk, v_blk, out, lse,
+                           causal and src == rank)
         _wait(pending)
     return out.to(q.dtype)
 

@@ -50,6 +50,28 @@ def collective_cases(rank: int, world: int, rendezvous: str):
         got = col.recv(prv, "ops", timeout=60.0)
         col.send(payload, nxt, "ops")
     out["p2p"] = got
+    # Two groups of half the gang's size at once, each with its own
+    # process group: the halves (ranks 0..n/2-1 and n/2..n-1) and the
+    # strided pairs (even and odd ranks).
+    half = world // 2
+    for name, members in (("halves", [list(range(half)),
+                                      list(range(half, world))]),
+                          ("strided", [list(range(0, world, 2)),
+                                       list(range(1, world, 2))])):
+        index = next(i for i, m in enumerate(members) if rank in m)
+        sub = members[index].index(rank)
+        join(sub, half, rendezvous, group_name=name,
+             store=f"{name}{index}")
+        out[f"{name}_rank_size"] = torch.tensor(
+            [col.get_rank(name), col.get_collective_group_size(name)])
+        out[f"{name}_allreduce"] = col.allreduce(ones * (rank + 1), name)
+        out[f"{name}_allgather"] = torch.stack(
+            col.allgather(torch.full((2,), float(rank)), name))
+        out[f"{name}_broadcast"] = col.broadcast(
+            torch.full((1,), float(rank)), half - 1, name)
+    out["gang_after_halves"] = col.allreduce(ones, "ops")
+    for name in ("halves", "strided"):
+        col.destroy_collective_group(name)
     # A second group beside the first, then the name joined again after
     # destroy (with a new rendezvous: the old one is gone).
     join(rank, world, rendezvous, group_name="side")
@@ -65,9 +87,10 @@ def collective_cases(rank: int, world: int, rendezvous: str):
 
 def attention_cases(rank: int, world: int, rendezvous: str, cases):
     """Ring and Ulysses attention over the gang's ``seq`` group.  Each
-    case (name, kind, impl, causal, q, k, v) gives full float32 numpy
-    inputs [B, T, H, D]; this rank takes its sequence shard, and returns
-    its output shard and the gradients of sum(out ** 2) for q, k, v."""
+    case (name, kind, impl, causal, checkpoint_steps, q, k, v) gives
+    full float32 numpy inputs [B, T, H, D]; this rank takes its sequence
+    shard, and returns its output shard and the gradients of
+    sum(out ** 2) for q, k, v."""
     import torch
 
     from . import collective as col
@@ -78,13 +101,13 @@ def attention_cases(rank: int, world: int, rendezvous: str, cases):
     group = join(rank, world, rendezvous)
     out = {}
     try:
-        for name, kind, impl, causal, *qkv in cases:
+        for name, kind, impl, causal, ckpt, *qkv in cases:
             t = qkv[0].shape[1] // world
             q, k, v = (torch.tensor(x[:, rank * t:(rank + 1) * t])
                        .requires_grad_() for x in qkv)
             if kind == "ring":
                 o = ring_attention(q, k, v, group=group, causal=causal,
-                                   impl=impl)
+                                   checkpoint_steps=ckpt, impl=impl)
             else:
                 o = ulysses_attention(q, k, v, group=group, causal=causal)
             grads = torch.autograd.grad((o ** 2).sum(), (q, k, v))
@@ -149,3 +172,150 @@ def sharded_step_cases(rank: int, world: int, rendezvous: str, cases):
     finally:
         col.destroy_collective_group("gang")
     return out
+
+
+def moe_step_cases(rank: int, world: int, rendezvous: str, cases):
+    """``dryrun.sharded_steps`` for each case (name, config, flax numpy
+    params, mesh axes, token batches) of a GPT-2 MoE config, and each
+    expert weight's placements.  Returns {name: (metrics, final params,
+    {parameter: placements})}."""
+    from . import collective as col
+    from .dryrun import join, sharded_steps
+    from .models import gpt2
+    from .parallel.mesh import MeshSpec, create_mesh
+    from .train import train_step
+
+    join(rank, world, rendezvous)
+    out = {}
+    try:
+        for name, cfg, params, axes, batches in cases:
+            metrics, final = sharded_steps(
+                cfg, params, axes, batches, device="cpu",
+                optimizer_kw=dict(total_steps=10, warmup_steps=2),
+                loss_kw=dict(loss_chunk=0))
+            mesh = create_mesh(MeshSpec(**axes), device="cpu")
+            state = train_step.shard_state(train_step.TrainState.create(
+                gpt2.GPT2(cfg, device="cpu"), train_step.make_optimizer()),
+                mesh, gpt2.gpt2_param_axes)
+            placements = {n: repr(p.placements) for n, p in
+                          state.model.named_parameters() if "moe" in n}
+            out[name] = (metrics, final, placements)
+    finally:
+        col.destroy_collective_group("gang")
+    return out
+
+
+def pipeline_cases(rank: int, world: int, rendezvous: str, cases):
+    """``parallel.pipeline.pipeline_apply`` over the gang, one stage per
+    rank, with stage_fn ``tanh(h @ w)``.  Each case (name, stacked stage
+    weights [S, d, d], x [B, d], microbatches, checkpoint_stage) gives
+    numpy inputs; rank r runs stage ``w[r]``.  Returns {name: (output,
+    this stage's gradient of sum(out ** 2), the input's gradient)} and
+    whether a batch that does not divide by the microbatches raises."""
+    import torch
+
+    from . import collective as col
+    from .dryrun import join
+    from .parallel.pipeline import pipeline_apply
+
+    group = join(rank, world, rendezvous)
+    out = {}
+    try:
+        for name, ws, x, m, ckpt in cases:
+            w = torch.tensor(ws[rank], requires_grad=True)
+            xt = torch.tensor(x, requires_grad=True)
+            y = pipeline_apply(lambda p, h: torch.tanh(h @ p), w, xt,
+                               num_microbatches=m, group=group,
+                               checkpoint_stage=ckpt)
+            gw, gx = torch.autograd.grad((y ** 2).sum(), (w, xt))
+            out[name] = (_np(y), _np(gw), _np(gx))
+        try:
+            pipeline_apply(lambda p, h: h, None, torch.zeros(7, 2),
+                           num_microbatches=2, group=group)
+            out["indivisible_raises"] = False
+        except ValueError:
+            out["indivisible_raises"] = True
+    finally:
+        col.destroy_collective_group("gang")
+    return out
+
+
+def checkpoint_cases(rank: int, world: int, rendezvous: str, jax_dir: str,
+                     out_dir: str, host_tree, cfg, batches):
+    """Sharded checkpoints over an ``fsdp`` x world gang on the CPU:
+
+    - ``host_tree`` ({"w", "b"} numpy) placed as DTensors (w over fsdp,
+      b replicated) and saved into ``out_dir/port_tree``;
+    - ``jax_dir`` (a checkpoint the JAX package wrote) restored onto the
+      mesh: each leaf's full value, local shard and placements;
+    - the GPT-2 ``cfg`` train state: one step, saved into
+      ``out_dir/state``, a second step; then a fresh state restored from
+      the checkpoint takes the second step again.
+
+    Returns (restored JAX leaves, the state after step 1 as numpy, the
+    second step's loss and parameters, uninterrupted and restored, and
+    whether the restored leaves kept their placements)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from . import collective as col
+    from .dryrun import join
+    from .models import convert, gpt2
+    from .parallel.mesh import MeshSpec, create_mesh
+    from .parallel.sharding import PartitionSpec, distribute, spec_placements
+    from .train import distributed, train_step
+    from .train.sharded_checkpoint import load_sharded, save_sharded
+
+    group = join(rank, world, rendezvous)
+    try:
+        mesh = create_mesh(MeshSpec(fsdp=world), device="cpu")
+        tree = {"w": distribute(torch.from_numpy(host_tree["w"]),
+                                spec_placements(mesh, PartitionSpec("fsdp"))),
+                "b": distribute(torch.from_numpy(host_tree["b"]),
+                                spec_placements(mesh, PartitionSpec()))}
+        save_sharded(os.path.join(out_dir, "port_tree"), tree, mesh=mesh,
+                     save_id="tree")
+        got = load_sharded(jax_dir, mesh=mesh)
+        restored = {k: (_np(v.full_tensor()), _np(v.to_local()),
+                        repr(v.placements)) for k, v in got.items()}
+
+        cfg = dataclasses.replace(cfg, mesh=mesh)
+        opt = train_step.make_optimizer(total_steps=10, warmup_steps=2)
+
+        def fresh(seed):
+            net = gpt2.gpt2_init(cfg, torch.Generator().manual_seed(seed),
+                                 device="cpu")
+            return train_step.shard_state(
+                train_step.TrainState.create(net, opt), mesh,
+                gpt2.gpt2_param_axes)
+
+        step = train_step.make_sharded_train_step(
+            lambda m, b: gpt2.gpt2_loss_fn(cfg, m, b), opt, mesh)
+        sharding = spec_placements(mesh, PartitionSpec("fsdp"))
+
+        def batch(i):
+            return {"tokens": distribute(torch.from_numpy(batches[i]),
+                                         sharding)}
+
+        state, _ = step(fresh(0), batch(0))
+        after1 = {k: _np(v.full_tensor()).copy() for k, v in
+                  state.model.named_parameters()}
+        path = os.path.join(out_dir, "state")
+        save_sharded(path, distributed.train_state_tree(state), mesh=mesh,
+                     save_id="state", meta={"step": state.step})
+        group.barrier()     # rank 0 has committed
+        _, m2 = step(state, batch(1))
+        straight = (float(m2["loss"]), convert.gpt2_params_to_numpy(
+            dict(state.model.named_parameters())))
+        again = fresh(1)    # other weights, overwritten by the restore
+        distributed.restore_train_state(again, load_sharded(path, mesh=mesh))
+        kept = all(repr(p.placements) == repr(q.placements) for p, q in zip(
+            again.model.parameters(), state.model.parameters()))
+        _, m3 = step(again, batch(1))
+        resumed = (float(m3["loss"]), convert.gpt2_params_to_numpy(
+            dict(again.model.named_parameters())))
+    finally:
+        col.destroy_collective_group("gang")
+    return restored, after1, straight, resumed, kept, again.step

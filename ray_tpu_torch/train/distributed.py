@@ -17,7 +17,10 @@ agree with the mesh, as in the JAX package.
 partition-rule sets (``models.*_partition_rules``) through
 ``match_partition_rules`` over the whole TrainState (moments match their
 parameters' paths) and places it as DTensors, each rank keeping only its
-slices of the full host values.
+slices of the full host values.  ``train_state_tree`` is what
+``train.sharded_checkpoint.save_sharded`` writes, and
+``restore_train_state`` puts what ``load_sharded`` reads back into a
+TrainState.
 
 The topology math at the top is pure Python.
 """
@@ -231,6 +234,41 @@ def train_state_tree(state) -> Dict[str, Any]:
             "opt_state": {"count": opt["count"],
                           "mu": dict(zip(names, opt["mu"])),
                           "nu": dict(zip(names, opt["nu"]))}}
+
+
+def restore_train_state(state, tree) -> Any:
+    """Put a restored ``train_state_tree`` (``train.sharded_checkpoint.
+    load_sharded``'s result: DTensors on a mesh, or numpy on the host)
+    into ``state`` in place, so that it steps on: DTensor parameters
+    and moments through ``train_step.place_state``, host values copied
+    into the model's parameters and onto their devices."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.partition_rules import _leaves, path_name
+    from .train_step import place_state
+
+    def dotted(node):
+        return {path_name(p, "."): leaf for p, leaf in _leaves(node)}
+
+    params = dotted(tree["params"])
+    opt = tree["opt_state"]
+    moments = {key: dotted(opt[key]) for key in ("mu", "nu")}
+    if any(isinstance(v, DTensor) for v in params.values()):
+        place_state(state, params, moments)
+    else:
+        named = dict(state.model.named_parameters())
+        with torch.no_grad():
+            for name, p in named.items():
+                p.copy_(torch.from_numpy(np.asarray(params[name])))
+        for key in ("mu", "nu"):
+            state.opt_state[key] = [
+                torch.from_numpy(np.array(moments[key][n])).to(p.device)
+                for n, p in named.items()]
+    state.opt_state["count"] = int(opt["count"])
+    state.step = int(tree["step"])
+    return state
 
 
 def state_specs(state: Any, rules, *, default: Any = None) -> Any:

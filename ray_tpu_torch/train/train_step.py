@@ -170,9 +170,11 @@ def shard_state(state: TrainState, mesh, param_axes_fn, rules=None
         dict(state.model.named_parameters()), mesh, param_axes_fn, rules))
 
 
-def place_state(state: TrainState, placed) -> TrainState:
+def place_state(state: TrainState, placed, moments=None) -> TrainState:
     """Swap the model's parameters for ``placed`` ({state_dict name:
-    DTensor}) and place both moments as their parameters are."""
+    DTensor}) and place both moments as their parameters are, or take
+    them from ``moments`` ({"mu", "nu": {name: DTensor}}, a restored
+    checkpoint's)."""
     model = state.model
     for name, value in placed.items():
         if value.shape != model.get_parameter(name).shape:
@@ -181,6 +183,11 @@ def place_state(state: TrainState, placed) -> TrainState:
         module_name, _, leaf = name.rpartition(".")
         setattr(model.get_submodule(module_name), leaf,
                 nn.Parameter(value.detach()))
+    if moments is not None:
+        names = [n for n, _p in model.named_parameters()]
+        for key in ("mu", "nu"):
+            state.opt_state[key] = [moments[key][n] for n in names]
+        return state
     params = list(model.parameters())
     for key in ("mu", "nu"):
         state.opt_state[key] = [_like_param(m, p) for m, p in

@@ -3,7 +3,10 @@
 The cases of ``tests/test_collective.py`` that need no runtime (every
 reduce op of allreduce, allgather, broadcast, reducescatter, barrier,
 send/recv, rank and size, name reuse after destroy), run by 2 and 4
-spawned ranks over a ``file://`` rendezvous in ``tmp_path``.  Each
+spawned ranks over a ``file://`` rendezvous in ``tmp_path``.  Each rank
+also joins two gloo groups of half the gang's size at once (the halves
+and the strided pairs), each a process group of its own beside the
+gang's.  Each
 world is one spawn (``ray_tpu_torch.testing.collective_cases``); the
 results must equal numpy's exactly.
 """
@@ -120,3 +123,28 @@ def test_runtime_declared_groups_wait_for_the_runtime_slice():
     assert col.get_rank("never-joined") == -1
     with pytest.raises(ValueError):
         col.init_collective_group(2, 2, group_name="bad-rank")
+
+
+@pytest.mark.parametrize("name", ["halves", "strided"])
+def test_groups_of_half_the_gang_size(world, name):
+    """Each rank sits in the gang and in a half-size group of its own
+    rendezvous; every op of the half-size group sees only its members,
+    and the gang's group still works beside it."""
+    n, ranks = _each(world)
+    half = n // 2
+    groups = ([list(range(half)), list(range(half, n))] if name == "halves"
+              else [list(range(0, n, 2)), list(range(1, n, 2))])
+    for r, out in ranks:
+        members = next(m for m in groups if r in m)
+        np.testing.assert_array_equal(out[f"{name}_rank_size"],
+                                      [members.index(r), half])
+        np.testing.assert_array_equal(
+            out[f"{name}_allreduce"],
+            np.full(4, sum(m + 1 for m in members), np.float32))
+        np.testing.assert_array_equal(
+            out[f"{name}_allgather"],
+            np.stack([np.full(2, m, np.float32) for m in members]))
+        np.testing.assert_array_equal(out[f"{name}_broadcast"],
+                                      [float(members[-1])])
+        np.testing.assert_array_equal(out["gang_after_halves"],
+                                      np.full(4, n, np.float32))

@@ -356,3 +356,82 @@ def test_paged_store_on_card_drops_padded_rows(card):
     want_k[3, 2], want_v[3, 2] = k_new[1, 0], v_new[1, 0]
     assert torch.equal(k, want_k) and torch.equal(v, want_v)
     assert torch.equal(k[0], k0[0]) and torch.equal(v[0], v0[0])
+
+
+def test_moe_layer_on_the_card_matches_its_cpu_run(card):
+    """``MoEMLP`` (plain PyTorch: routing, dense dispatch/combine, the
+    expert FFNs) on the card against the same layer on the CPU, float32:
+    output, aux loss and gradients within 1e-4, the same rows dropped."""
+    from ray_tpu_torch.ops.moe import MoEMLP
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 32, generator=gen)
+    runs = []
+    for device in ("cpu", card):
+        layer = MoEMLP(32, 64, 4, top_k=2, capacity_factor=1.0,
+                       dtype=torch.float32, device=device)
+        if device == "cpu":
+            layer.reset_parameters(torch.Generator().manual_seed(1))
+        else:
+            layer.load_state_dict(runs[0][0].state_dict())
+        xi = x.detach().to(device).requires_grad_()
+        y, aux = layer(xi)
+        ((y ** 2).mean() + 0.01 * aux).backward()
+        runs.append((layer, y.detach().cpu(), float(aux.detach()),
+                     xi.grad.cpu(), [p.grad.cpu() for p in
+                                     layer.parameters()]))
+    (_l, y0, a0, dx0, g0), (_c, y1, a1, dx1, g1) = runs
+    assert torch.equal(y0.abs().sum(-1) == 0, y1.abs().sum(-1) == 0)
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-4)
+    assert abs(a1 - a0) <= 1e-4
+    torch.testing.assert_close(dx1, dx0, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_world1_checkpoint_round_trip_of_dtensor_state(card, nccl_gang,
+                                                       tmp_path):
+    """A world-1 NCCL gang's DTensor train state (GPT-2 tiny, after one
+    step) saved with ``save_sharded`` and restored with
+    ``load_sharded`` onto the same mesh: every leaf bit-identical, and
+    the next step equal from both."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from ray_tpu_torch.parallel.sharding import distribute, logical_sharding
+    from ray_tpu_torch.train import distributed
+    from ray_tpu_torch.train import train_step as ts
+    from ray_tpu_torch.train.sharded_checkpoint import (load_sharded,
+                                                        save_sharded)
+
+    mesh = create_mesh(MeshSpec(), device=card)
+    cfg = dataclasses.replace(GPT2Config.tiny(), dtype=torch.float32,
+                              mesh=mesh)
+    opt = ts.make_optimizer(total_steps=10, warmup_steps=2)
+
+    def fresh(seed):
+        model = gpt2_init(cfg, torch.Generator(device=card).manual_seed(seed),
+                          device=card)
+        return ts.shard_state(ts.TrainState.create(model, opt), mesh,
+                              _gpt2.gpt2_param_axes)
+
+    step = ts.make_sharded_train_step(
+        lambda m, b: gpt2_loss_fn(cfg, m, b), opt, mesh)
+    gen = torch.Generator(device=card).manual_seed(3)
+    toks = [distribute(torch.randint(0, cfg.vocab_size, (4, 129),
+                                     generator=gen, device=card),
+                       logical_sharding(mesh, ("batch", None)))
+            for _ in range(2)]
+    state, _ = step(fresh(0), {"tokens": toks[0]})
+    path = str(tmp_path / "checkpoint_000001")
+    save_sharded(path, distributed.train_state_tree(state), mesh=mesh)
+    again = distributed.restore_train_state(fresh(1),
+                                            load_sharded(path, mesh=mesh))
+    for a, b in zip(again.model.parameters(), state.model.parameters()):
+        assert torch.equal(a.full_tensor(), b.full_tensor())
+    for key in ("mu", "nu"):
+        for a, b in zip(again.opt_state[key], state.opt_state[key]):
+            assert torch.equal(a.full_tensor(), b.full_tensor())
+    _, m1 = step(state, {"tokens": toks[1]})
+    _, m2 = step(again, {"tokens": toks[1]})
+    assert float(m1["loss"]) == float(m2["loss"])
+    for a, b in zip(again.model.parameters(), state.model.parameters()):
+        assert torch.equal(a.full_tensor(), b.full_tensor())

@@ -150,10 +150,14 @@ def test_flops_per_token_match_jax(cfg):
 
 def test_later_slices_raise_not_implemented():
     _jcfg, tcfg = _configs()
-    # MoE waits for the expert-parallel slice; ring/Ulysses attention
+    # MoE blocks arrived with the expert-parallel slice (every other
+    # block); an unknown attention impl raises; ring/Ulysses attention
     # (the distributed slice) need a mesh, as in the JAX model.
-    with pytest.raises(NotImplementedError, match="slice"):
-        tgpt2.GPT2(dataclasses.replace(tcfg, moe_num_experts=4),
+    moe = tgpt2.GPT2(dataclasses.replace(tcfg, moe_num_experts=4),
+                     device="cpu")
+    assert [b.use_moe for b in moe.blocks()] == [False, True]
+    with pytest.raises(ValueError, match="attn_impl"):
+        tgpt2.GPT2(dataclasses.replace(tcfg, attn_impl="paged"),
                    device="cpu")
     for impl in ("ring", "ulysses"):
         cfg = dataclasses.replace(tcfg, attn_impl=impl)

@@ -3,7 +3,8 @@
 ``ray_tpu_torch``, ``chip_smoke.py`` and the card tests (run where JAX is
 not installed) import ``torch`` and numpy, never ``jax``/``flax``/``optax``
 nor ``ray_tpu`` (a name that ``ray_tpu_torch`` itself starts with, so the
-check matches whole dotted prefixes).  Entry
+check matches whole dotted prefixes), nor ``msgpack`` (the card machine
+lacks it; the port keeps its own codec for flax's layout).  Entry
 points called without a device run on CUDA or raise.
 """
 
@@ -19,7 +20,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "ray_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "msgpack")
 
 
 def _forbidden(module: str) -> bool:
@@ -77,6 +78,12 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.parallel.ring_attention\n"
         "import ray_tpu_torch.parallel.ulysses, ray_tpu_torch.testing\n"
         "import ray_tpu_torch.train.distributed\n"
+        "import ray_tpu_torch.ops.moe, ray_tpu_torch.parallel.pipeline\n"
+        "import ray_tpu_torch.parallel.grad_collectives\n"
+        "import ray_tpu_torch.util.checkpoint_fs\n"
+        "import ray_tpu_torch.util.flax_msgpack\n"
+        "import ray_tpu_torch.train.sharded_checkpoint\n"
+        "import ray_tpu_torch.train.checkpoint\n"
         "print(sorted(bad() - before))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -95,7 +102,11 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "parallel/mesh.py", "parallel/sharding.py",
                    "parallel/partition_rules.py",
                    "parallel/ring_attention.py", "parallel/ulysses.py",
-                   "train/distributed.py", "dryrun.py", "testing.py"):
+                   "train/distributed.py", "dryrun.py", "testing.py",
+                   "ops/moe.py", "parallel/pipeline.py",
+                   "parallel/grad_collectives.py", "util/checkpoint_fs.py",
+                   "util/flax_msgpack.py", "train/sharded_checkpoint.py",
+                   "train/checkpoint.py"):
         assert module in files
 
 
@@ -106,13 +117,17 @@ def test_no_device_means_cuda_or_raise(monkeypatch):
     from ray_tpu_torch.llm.kv_cache import init_cache
     from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_init
     from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
+    from ray_tpu_torch.ops.moe import MoEMLP
     from ray_tpu_torch.train.distributed import setup_distributed_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     cfg, lcfg = GPT2Config.tiny(), LlamaConfig.tiny()
+    moe = GPT2Config(vocab_size=64, n_layer=2, n_head=2, d_model=32, d_ff=64,
+                     max_seq=16, moe_num_experts=4)
     for entry in (lambda: GPT2(cfg), lambda: gpt2_init(cfg),
+                  lambda: GPT2(moe), lambda: MoEMLP(32, 64, 4),
                   lambda: Llama(lcfg), lambda: llama_init(lcfg),
                   lambda: GenerationEngine(model_cfg=cfg),
                   lambda: GenerationEngine(model="llama"),

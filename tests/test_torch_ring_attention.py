@@ -8,7 +8,9 @@ Shapes are those of ``tests/test_parallel.py``: ring B2 T32 H4 D16,
 Ulysses B2 T32 H8 D16.  Outputs and the gradients of sum(out ** 2) must
 agree within that file's tolerances: 2e-5 (atol and rtol) for outputs,
 3e-5 for gradients.  On the CPU, ``impl="flash"`` runs the plain
-versions of the flash kernels with their lse cotangent.
+versions of the flash kernels with their lse cotangent.  Both impls also
+run causal with ``checkpoint_steps`` set either way (JAX with the same
+setting); the two settings must give the same output and gradients.
 """
 
 import functools
@@ -27,10 +29,12 @@ from ray_tpu_torch.dryrun import spawn
 from ray_tpu_torch.testing import attention_cases
 
 CASES = [(f"{kind}-{impl}-{'causal' if causal else 'full'}", kind, impl,
-          causal)
+          causal, None)
          for kind, impl in (("ring", "flash"), ("ring", "lax"),
                             ("ulysses", None))
          for causal in (True, False)]
+CASES += [(f"ring-{impl}-causal-checkpoint-{ckpt}", "ring", impl, True, ckpt)
+          for impl in ("flash", "lax") for ckpt in (True, False)]
 
 
 def _inputs(kind, seed):
@@ -40,10 +44,11 @@ def _inputs(kind, seed):
             for _ in range(3)]
 
 
-def _jax(n, kind, impl, causal, q, k, v):
+def _jax(n, kind, impl, causal, ckpt, q, k, v):
     mesh = create_mesh(MeshSpec(seq=n, data=-1))
     spec = P(None, "seq", None, None)
-    inner = (functools.partial(ring_attention, causal=causal, impl=impl)
+    inner = (functools.partial(ring_attention, causal=causal, impl=impl,
+                               checkpoint_steps=ckpt)
              if kind == "ring" else
              functools.partial(ulysses_attention, causal=causal))
     fn = shard_map(inner, mesh=mesh, in_specs=(spec, spec, spec),
@@ -57,12 +62,15 @@ def _jax(n, kind, impl, causal, q, k, v):
 @pytest.fixture(scope="module", params=[2, 4])
 def world(request, tmp_path_factory):
     n = request.param
-    cases = [(name, kind, impl, causal, *_inputs(kind, i))
-             for i, (name, kind, impl, causal) in enumerate(CASES)]
+    # The checkpoint_steps cases share one seed, so both settings see the
+    # same inputs.
+    cases = [(name, kind, impl, causal, ckpt,
+              *_inputs(kind, 100 if ckpt is not None else i))
+             for i, (name, kind, impl, causal, ckpt) in enumerate(CASES)]
     runs = spawn(attention_cases, n, cases, timeout=120,
                  workdir=str(tmp_path_factory.mktemp(f"ring{n}")))
-    want = {name: _jax(n, kind, impl, causal, *qkv)
-            for name, kind, impl, causal, *qkv in cases}
+    want = {name: _jax(n, kind, impl, causal, ckpt, *qkv)
+            for name, kind, impl, causal, ckpt, *qkv in cases}
     # The ranks' shards, concatenated along the sequence.
     got = {name: [np.concatenate([r[name][j] for r in runs], axis=1)
                   for j in range(4)] for name, *_ in cases}
@@ -82,6 +90,17 @@ def test_gradients_match_jax(world, name):
     for g, w, which in zip(got[name][1:], want[name][1:], "qkv"):
         np.testing.assert_allclose(g, w, atol=3e-5, rtol=3e-5,
                                    err_msg=f"d{which}")
+
+
+@pytest.mark.parametrize("impl", ["flash", "lax"])
+def test_checkpoint_steps_leave_output_and_gradients_alone(world, impl):
+    """Recomputing each step's block in the backward changes nothing:
+    the same output and gradients with checkpoint_steps on and off."""
+    got, _want = world
+    on, off = (got[f"ring-{impl}-causal-checkpoint-{c}"] for c in (True,
+                                                                   False))
+    for a, b, which in zip(on, off, ("out", "dq", "dk", "dv")):
+        np.testing.assert_array_equal(a, b, err_msg=which)
 
 
 def test_ulysses_rejects_heads_not_dividing_the_axis(monkeypatch):

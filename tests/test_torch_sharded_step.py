@@ -206,12 +206,14 @@ def test_world1_sharded_step_equals_unsharded(world1, sharded, plain):
 
 def test_dryrun_multichip_8(runs):
     """The JAX dry run's meshes at 8 ranks: data2 x seq2 x tensor2 with
-    ring attention, and dcn2 x data2 x tensor2; zero tokens from the
-    seed-0 init give a finite loss below ln(vocab)."""
+    ring attention, dcn2 x data2 x tensor2, and data2 x expert2 x
+    tensor2 with MoE blocks; zero tokens from the seed-0 init give a
+    finite loss below ln(vocab)."""
     dry = runs[2]
     assert [(name, axes) for name, axes, _l in dry] == [
         ("main", dict(data=2, seq=2, tensor=2)),
-        ("dcn", dict(dcn=2, data=2, tensor=2))]
+        ("dcn", dict(dcn=2, data=2, tensor=2)),
+        ("ep", dict(data=2, expert=2, tensor=2))]
     for name, _axes, loss in dry:
         assert 0 < loss < np.log(512 if name == "main" else 256) + 0.1
 
