@@ -14,6 +14,27 @@ GPT-2 pretraining shape, then drives the main path
 entropy, clip + AdamW) and checks that every step went through the
 kernels.
 
+Right after the main path, ``[telemetry]`` runs the same training
+(weights, tokens, 1 + 10 steps) through the measurement plane:
+``make_sharded_train_step(mesh=None, telemetry=True)`` (the goodput
+ledger and the xprof harvest of the first call), fed by
+``TrainSession.iter_device_batches`` from pinned host batches, with
+``session.report`` after every call.  It prints the goodput phases, the
+harvested program (FLOPs, bytes, memory, the flash kernels' part) and
+its roofline report, the forward/backward/optimizer decomposition and
+the device-memory gauges, and fails unless the losses equal the main
+path's bit for bit, launches are 24/12/12 a step, the session's MFU
+(the median of its per-step readings) is within 5% of the CUDA-event
+MFU, the flash FLOPs equal launches x ``flash_cost`` and the total lies
+in ``HARVEST_BAND``, the decomposition keeps its structure, the host
+time that the plane adds to a step (``plane_host_cost``) is under 2% of
+the main path's step and the peak gauge equals the allocator's peak.  The
+later phases check their series too: ``[sharded]`` the NCCL group's
+eager-op latencies (each at least the op's CUDA-event time),
+``[checkpoint]`` the save and restore series and goodput, ``[serve]
+GPT-2 124M`` the engine's counters, TTFT phases, request spans, page
+gauges and registered programs over the load.
+
 Beside the main path, two more checks of the flash kernels and two
 training phases of the distributed slice:
 
@@ -58,8 +79,9 @@ anything.
 
 Output, last lines: one JSON line ``{"kernels": [...]}`` with each
 kernel's launches on the main path, error against its plain version,
-times and bound; one JSON line ``{"serving": [...]}`` with each serve
-phase's numbers; the card's name and power limit (``nvidia-smi``); and
+times and bound; one JSON line ``{"telemetry": {...}}`` with
+``[telemetry]``'s numbers; one JSON line ``{"serving": [...]}`` with
+each serve phase's numbers; the card's name and power limit (``nvidia-smi``); and
 last ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
 device-time breakdown of two more training steps, unsharded and sharded
 (see ``profile_steps``).
@@ -124,15 +146,11 @@ def bound(kernel: str, bh: int, t: int, d: int, causal: bool):
     """Least time on the card for the work of one call, from its shapes:
     the larger of the bf16 matrix-product operations over the tensor-core
     peak and the bytes (each input read once, each output written once)
-    over the HBM rate.  Returns (ms, "operations" | "bytes")."""
-    pairs = t * (t + 1) // 2 if causal else t * t    # visible (q, k) pairs
-    tile = bh * t * d * 2                            # one bf16 [BH, T, D]
-    rows = bh * t * 4                                # one fp32 [BH, T]
-    flops, nbytes = {
-        "flash_fwd": (4 * d * pairs * bh, 4 * tile + rows),
-        "flash_dkv": (8 * d * pairs * bh, 6 * tile + 2 * rows),
-        "flash_dq": (6 * d * pairs * bh, 5 * tile + 2 * rows),
-    }[kernel]
+    over the HBM rate, both from ``flash_cost`` (the formula the xprof
+    harvest counts).  Returns (ms, "operations" | "bytes", FLOPs)."""
+    from ray_tpu_torch.ops.flash_attention import flash_cost
+
+    flops, nbytes = flash_cost(kernel, bh, t, d, causal)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         ("operations" if t_ops >= t_bytes else "bytes"), flops
@@ -405,10 +423,362 @@ def main_path(card: str, profile: bool = False):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  launches over {total} steps: {counts} "
           f"(per step 24 fwd / 12 dK,dV / 12 dQ)")
+    # The host's time to issue one step to an idle card: where it
+    # exceeds the step's device time, the steps above were host-bound.
+    issue = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _m = step(state, data)
+        issue.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    print(f"  host issues one step to an idle card in "
+          f"{sorted(issue)[1]:.3f} ms (median of {[round(x, 3) for x in issue]}; card: {card})")
     if profile:
         profile_steps(step, state, data)
     return counts, {"first_loss": losses[0], "median_ms": median,
-                    "tokens_per_s": tok_s}
+                    "tokens_per_s": tok_s, "losses": losses}
+
+
+def registry_series():
+    """The port's metrics registry as {(name, sorted tags): value}, a
+    histogram's value being (count, sum)."""
+    from ray_tpu_torch.util.metrics import registry
+
+    out = {}
+    for snap in registry().snapshot():
+        for s in snap["series"]:
+            key = (snap["name"], tuple(sorted(s["tags"].items())))
+            out[key] = ((s["hist"]["count"], s["hist"]["sum"])
+                        if "hist" in s else s["value"])
+    return out
+
+
+def need(series, name: str, **tags):
+    """One series of ``registry_series()``; a missing one fails the run
+    (telemetry swallows its own errors, so a series that never came is
+    how a telemetry fault shows)."""
+    key = (name, tuple(sorted(tags.items())))
+    if key not in series:
+        raise RuntimeError(f"telemetry series {name}{tags} is missing")
+    return series[key]
+
+
+# [telemetry]: the harvested FLOPs of the main path's step over
+# flops_per_token() x B x T, from the shapes (PERF.md section 6): remat's
+# block forward again (early-stopped before mlp_out), the chunked loss's
+# four logits products, the flash kernels' visible pairs.
+HARVEST_BAND = (1.19, 1.22)          # predicted 1.2053
+
+
+def telemetry_phase(card: str, unsharded: dict):
+    """[telemetry] The main path at full width and depth (GPT-2 124M,
+    B16 T1024, flash + remat, chunk 256; seed-0 weights and tokens,
+    the main path's) through the measurement plane:
+    ``make_sharded_train_step(mesh=None, telemetry=True)`` fed by
+    ``TrainSession.iter_device_batches`` (depth 2) from pinned host
+    batches, ``session.report`` after every call, one call then 10.
+    Checks: (a) the losses equal [main path]'s bit for bit; (b) 24/12/12
+    launches a step; (c) the session's ``rt_train_mfu``, the median of
+    its ten per-step readings (each is one report interval on the host
+    clock), within 5% of the MFU of the CUDA-event step median; (d) the
+    harvested flash
+    FLOPs equal launches x ``flash_cost`` exactly and the total over
+    ``flops_per_token() x 16384`` within ``HARVEST_BAND``; (e) the
+    decomposition's shares sum to 1 within 0.05, the optimizer's under
+    0.15, backward above forward; (f) ``compile`` entered once and
+    ``compute`` 10 times, the plane's host cost per step
+    (``plane_host_cost``) under 2% of [main path]'s median step,
+    ``data_stall`` under 0.02 of the ten steps' wall time; (g) the
+    ``peak`` device-memory gauge equal to the allocator's peak.
+
+    The compute median is printed beside [main path]'s but not held to
+    it: where the host dispatches the step's ~2,700 launches slower
+    than the card runs them, both phases are host-bound and two runs of
+    the same code differ by more than 2% (PERF.md section 6, PR 7)."""
+    import torch
+
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init, gpt2_loss_fn
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.flash_attention import flash_cost
+    from ray_tpu_torch.train.config import TelemetryConfig
+    from ray_tpu_torch.train.session import TrainSession
+    from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
+                                                make_sharded_train_step)
+    from ray_tpu_torch.util import goodput, spans, xprof
+
+    cfg = GPT2Config(**GPT2_124M, remat=True, attn_impl="flash")
+    batch, steps = 16, 10
+    per_step = batch * cfg.max_seq
+    fpt = cfg.flops_per_token()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = gpt2_init(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                           generator=gen, device="cuda")
+    host = [tokens.cpu().pin_memory() for _ in range(1 + steps)]
+    del tokens
+    optimizer = make_optimizer(total_steps=1000)
+    state = TrainState.create(model, optimizer)
+
+    def loss_fn(m, b):
+        return gpt2_loss_fn(cfg, m, b, loss_chunk=256)
+
+    step = make_sharded_train_step(loss_fn, optimizer, mesh=None,
+                                   telemetry=True)
+    session = TrainSession(0, 1, 0, 1, 0, "telemetry",
+                           telemetry=TelemetryConfig(fpt, per_step))
+    goodput.reset()
+    spans.reset()
+    xprof._reset_local()
+    _kernels.reset_launches()
+    bounds = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    out, sess_mfus = [], []
+    t0 = time.perf_counter()
+    for i, b in enumerate(session.iter_device_batches(
+            ({"tokens": t} for t in host), depth=2)):
+        state, m = step(state, b)
+        bounds[i].record()
+        if i == 0:
+            first_s, t1 = time.perf_counter() - t0, time.perf_counter()
+        session.report({"step": i + 1, "loss": m["loss"]})
+        if i:   # the gauge is one report interval: read each step's
+            sess_mfus.append(need(registry_series(), "rt_train_mfu"))
+        out.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = dict(_kernels.launches)
+    losses = [float(x) for x in out]
+    step_ms = sorted(a.elapsed_time(b) for a, b in zip(bounds, bounds[1:]))
+    med = median(step_ms)
+    series = registry_series()
+    led = goodput.ledger().snapshot()
+    phase_spans = [sp["name"] for sp in spans.snapshot()
+                   if sp["cat"] == "phase"]
+    prog = xprof.local_programs()["train_step"]
+
+    print(f"  first call (compile: harvest) {first_s:.3f} s; {steps} "
+          f"compute steps: CUDA-event median {med:.3f} ms (min "
+          f"{step_ms[0]:.3f}, max {step_ms[-1]:.3f}) against [main path]'s "
+          f"{unsharded['median_ms']:.3f} ({med / unsharded['median_ms']:.4f}"
+          f"x), host clock {1e3 * wall / steps:.3f} ms/step (card: {card})")
+    total = max(led["total"], 1e-9)
+    print("  goodput seconds (share): " + ", ".join(
+        f"{p} {v:.4f} ({v / total:.4f})" for p, v in led["seconds"].items()))
+    flash = sum(k["flops"] for k in prog["kernels"].values())
+    ratio = prog["flops"] / (fpt * per_step)
+    print(f"  train_step harvested: {prog['flops'] / 1e12:.6f} TFLOP "
+          f"({ratio:.4f}x flops_per_token x {per_step}; flash kernels "
+          f"{flash / 1e12:.6f}, {flash / prog['flops']:.4f}), "
+          f"{prog['bytes'] / 1e9:.3f} GB accessed; memory " + ", ".join(
+              f"{k} {v / 2**30:.3f} GiB" for k, v in prog["memory"].items()))
+    print("  kernels in the harvest: " + json.dumps(prog["kernels"]))
+    report = xprof.build_report({"train_step": prog},
+                                {"train_step": {"step_time_s": med / 1e3}})
+    for line in xprof.render_report(report).splitlines():
+        print("  | " + line)
+    sess_mfu = median(sess_mfus)
+    event_mfu = per_step / (med / 1e3) * fpt / PEAK_BF16_FLOPS
+    print(f"  session: rt_train_mfu median {sess_mfu:.4f} of its "
+          f"{len(sess_mfus)} readings {[round(x, 4) for x in sess_mfus]}, "
+          f"last rt_train_tokens_per_sec "
+          f"{need(series, 'rt_train_tokens_per_sec'):.1f}; from the "
+          f"CUDA-event median: MFU {event_mfu:.4f}")
+
+    dec = xprof.measure_step_decomposition(
+        loss_fn, optimizer, state, {"tokens": host[0].to("cuda")}, steps=4,
+        reps=3, flops_per_step=fpt * per_step)
+    sh = dec["shares"]
+    print(f"  decomposition (4 calls x 3 reps, CUDA events): forward "
+          f"{1e3 * dec['forward_s']:.3f} ms, backward "
+          f"{1e3 * dec['backward_s']:.3f}, optimizer "
+          f"{1e3 * dec['optimizer_s']:.3f}, full step "
+          f"{1e3 * dec['full_step_s']:.3f}; shares {json.dumps(sh)}; of "
+          f"peak {json.dumps(dec.get('of_peak'))}")
+    plane_ms, plane_rounds = plane_host_cost()
+    print(f"  the plane's host cost: {plane_ms:.4f} ms a step (median of "
+          f"{len(plane_rounds)} rounds {[round(x, 4) for x in plane_rounds]}"
+          f"), {plane_ms / unsharded['median_ms']:.5f} of [main path]'s "
+          f"step (card: {card})")
+    n_mem = xprof.publish_device_memory()
+    mem = {k[1][1][1]: v for k, v in registry_series().items()
+           if k[0] == "rt_xla_device_memory_bytes"}
+    alloc_peak = torch.cuda.memory_stats()["allocated_bytes.all.peak"]
+    print(f"  rt_xla_device_memory_bytes ({n_mem} series): " + ", ".join(
+        f"{k} {v / 2**30:.3f} GiB" for k, v in mem.items()))
+
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_dkv": cfg.n_layer,
+            "flash_dq": cfg.n_layer}
+    checks = {
+        "(a) losses equal [main path]'s": losses == unsharded["losses"],
+        "(b) launches 24/12/12 a step": counts == {
+            k: v * (1 + steps) for k, v in want.items()},
+        "(c) session MFU within 5%": abs(sess_mfu / event_mfu - 1) < 0.05,
+        "(d) flash FLOPs = launches x flash_cost": all(
+            prog["kernels"][k]["launches"] == n and prog["kernels"][k][
+                "flops"] == n * flash_cost(k, batch * cfg.n_head,
+                                           cfg.max_seq, 64, True)[0]
+            for k, n in want.items()),
+        f"(d) harvest ratio in {HARVEST_BAND}":
+            HARVEST_BAND[0] <= ratio <= HARVEST_BAND[1],
+        "(e) shares sum to 1 +- 0.05": abs(sum(sh.values()) - 1) <= 0.05,
+        "(e) optimizer share < 0.15": sh["optimizer"] < 0.15,
+        "(e) backward > forward": dec["backward_s"] > dec["forward_s"],
+        "(f) compile once, compute 10 times":
+            (phase_spans.count("compile"), phase_spans.count("compute"))
+            == (1, steps),
+        "(f) the plane's host cost < 2% of the step":
+            plane_ms < 0.02 * unsharded["median_ms"],
+        "(f) data_stall < 0.02 of the steps":
+            led["seconds"]["data_stall"] < 0.02 * wall,
+        "(g) peak gauge = allocator peak": mem.get("peak") == alloc_peak,
+    }
+    print("  checks: " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                                   for k, v in checks.items()))
+    if not all(checks.values()):
+        print(f"  losses {losses}\n  [main path] {unsharded['losses']}\n"
+              f"  launches {counts}")
+        raise RuntimeError("[telemetry] failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return {"harvest_tflop": prog["flops"] / 1e12, "harvest_ratio": ratio,
+            "harvest_gb": prog["bytes"] / 1e9, "memory": prog["memory"],
+            "compute_median_ms": med, "plane_host_ms": plane_ms,
+            "main_path_median_ms": unsharded["median_ms"],
+            "session_mfu": sess_mfu, "event_mfu": event_mfu,
+            "goodput_seconds": led["seconds"],
+            "forward_ms": 1e3 * dec["forward_s"],
+            "backward_ms": 1e3 * dec["backward_s"],
+            "optimizer_ms": 1e3 * dec["optimizer_s"],
+            "full_step_ms": 1e3 * dec["full_step_s"],
+            "shares": sh, "of_peak": dec.get("of_peak")}
+
+
+def plane_host_cost(rounds: int = 5, n: int = 100):
+    """Host milliseconds that the measurement plane adds to one training
+    step: the step hook (goodput phase, dispatch histogram), the
+    prefetching iterator (feeder thread, pinned copy on a side stream,
+    stream wait) and ``session.report``.  A step with almost no device
+    work (one 8 -> 1 linear layer, clip + AdamW) on the main path's
+    token batch (16 x 1025 int64) runs ``n`` times from batches already
+    on the card with telemetry off, then ``n`` times through
+    ``make_sharded_train_step(telemetry=True)``,
+    ``iter_device_batches`` and ``report``; the cost is the difference
+    per step on the host clock, one per round, and the median of
+    ``rounds`` alternated rounds is returned with the rounds.  The
+    telemetry's first call (the harvest, goodput ``compile``) runs
+    before the rounds and registers a ``train_step`` program over the
+    main path's."""
+    import torch
+
+    from ray_tpu_torch.train.config import TelemetryConfig
+    from ray_tpu_torch.train.session import TrainSession
+    from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
+                                                make_sharded_train_step)
+
+    def loss_fn(m, b):
+        return m(b["tokens"][:, :8].float()).mean()
+
+    optimizer = make_optimizer(total_steps=1000)
+    state = TrainState.create(torch.nn.Linear(8, 1, device="cuda"),
+                              optimizer)
+    off, on = (make_sharded_train_step(loss_fn, optimizer, mesh=None,
+                                       telemetry=t) for t in (False, True))
+    session = TrainSession(0, 1, 0, 1, 0, "plane cost",
+                           telemetry=TelemetryConfig(1.0, 16 * 1024))
+    host = [torch.zeros(16, 1025, dtype=torch.int64).pin_memory()
+            for _ in range(n)]
+    placed = [{"tokens": t.to("cuda")} for t in host]
+
+    def plain(state):
+        for b in placed:
+            state, _m = off(state, b)
+        return state
+
+    def measured(state):
+        batches = session.iter_device_batches(
+            ({"tokens": t} for t in host), depth=2)
+        for i, b in enumerate(batches):
+            state, m = on(state, b)
+            session.report({"step": i + 1, "loss": m["loss"]})
+        return state
+
+    state = measured(plain(state))      # the harvest and warm-up
+    costs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = plain(state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = measured(state)
+        torch.cuda.synchronize()
+        costs.append(1e3 * ((time.perf_counter() - t1) - (t1 - t0)) / n)
+    return median(costs), costs
+
+
+def nccl_telemetry(group_name: str, card: str):
+    """[sharded] Eager ops on the world-1 gang's NCCL group (an allreduce
+    and a broadcast of 256 MiB, a barrier): one call to set NCCL up, then
+    5 rounds of the same device work issued on the process group
+    without the telemetry (the staging copy into a buffer allocated
+    beforehand, the collective and its wait; timed between CUDA events)
+    and of the group's call.  Every call must add one
+    ``rt_collective_latency_seconds{backend="nccl"}`` sample, and the
+    median latency must be at least the median CUDA-event time of that
+    work: the timed region covers the op's completion, not only its
+    launch (one run of the op with its 256 MiB allocation drifted to
+    0.2946 ms against the group's 0.2467, so the allocation is left out
+    and medians of alternated rounds are compared).  The barrier is held to its
+    sample count only: NCCL's barrier blocks the host in ``wait()``
+    itself, so its "CUDA-event time" is the same host round trip as the
+    latency, and the two tie within noise."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import collective as col
+
+    group = col.get_group(group_name)
+    pg = group.process_group
+    x = torch.ones(64 << 20, device="cuda")
+    y = torch.empty_like(x)
+    bcast = dist.BroadcastOptions()
+    bcast.rootRank = 0
+    calls = (("allreduce", lambda: group.allreduce(x),
+              lambda: pg.allreduce([y.copy_(x)],
+                                   dist.AllreduceOptions()).wait()),
+             ("broadcast", lambda: group.broadcast(x, 0),
+              lambda: pg.broadcast([y.copy_(x)], bcast).wait()),
+             ("barrier", group.barrier,
+              lambda: pg.barrier(dist.BarrierOptions()).wait()))
+    name, rounds = "rt_collective_latency_seconds", 5
+    for op, call, raw in calls:
+        tags = dict(op=op, backend="nccl", world="1")
+        n0, _s = registry_series().get((name, tuple(sorted(tags.items()))),
+                                       (0, 0.0))
+        call()
+        torch.cuda.synchronize()
+        events, latencies = [], []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            raw()
+            end.record()
+            end.synchronize()
+            events.append(start.elapsed_time(end))
+            _n, s1 = need(registry_series(), name, **tags)
+            call()
+            _n, s2 = need(registry_series(), name, **tags)
+            latencies.append(1e3 * (s2 - s1))
+        n, _s = need(registry_series(), name, **tags)
+        ev, latency = median(events), median(latencies)
+        size = "" if op == "barrier" else f" {x.nbytes / 2**20:.0f} MiB"
+        print(f"  {op}{size}: telemetry latency median {latency:.4f} ms "
+              f"{[round(v, 4) for v in latencies]}, the op alone "
+              f"{ev:.4f} ms {[round(v, 4) for v in events]} (CUDA events); "
+              f"{n - n0} samples for {1 + rounds} calls (card: {card})")
+        if n - n0 != 1 + rounds or not (op == "barrier" or latency >= ev):
+            raise RuntimeError(f"NCCL timed_op {op}: {n - n0} samples; "
+                               f"latency {latency} ms < {ev} ms")
 
 
 def check_lse_cotangent(b, t, h, d, causal, seed):
@@ -465,7 +835,8 @@ def check_lse_cotangent(b, t, h, d, causal, seed):
 def world1_gang():
     """A world-1 NCCL gang (``setup_distributed_mesh``) through a
     ``file://`` store in a temporary directory; yields the all-axes
-    mesh (``create_mesh(MeshSpec())``) and leaves the gang on exit."""
+    mesh (``create_mesh(MeshSpec())``) and the gang's group name, and
+    leaves the gang on exit."""
     import tempfile
 
     import torch
@@ -481,7 +852,7 @@ def world1_gang():
             print(f"  gang {gang.group_name!r}: world {gang.world}, mesh "
                   f"{gang.axis_sizes}, backend "
                   f"{torch.distributed.get_backend()}")
-            yield create_mesh(MeshSpec(), device="cuda")
+            yield create_mesh(MeshSpec(), device="cuda"), gang.group_name
         finally:
             col.destroy_collective_group(gang.group_name)
 
@@ -542,9 +913,11 @@ def sharded_path(card: str, unsharded: dict, mesh, profile: bool = False):
     from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.parallel.sharding import (ShardingRules, distribute,
                                                  logical_sharding)
+    from ray_tpu_torch.parallel.mesh import mesh_axis_sizes
     from ray_tpu_torch.train.train_step import (TrainState, make_optimizer,
                                                 make_sharded_train_step,
                                                 shard_state)
+    from ray_tpu_torch.util import xprof
 
     batch, warm, steps = 16, 1, 10
     rules = ShardingRules()
@@ -594,6 +967,11 @@ def sharded_path(card: str, unsharded: dict, mesh, profile: bool = False):
           f"(card: {card})")
     print(f"  launches over {total} steps: {counts} "
           f"(per step 24 fwd / 12 dK,dV / 12 dQ)")
+    prog = xprof.local_programs()["train_step"]
+    print(f"  train_step registered on mesh {mesh_axis_sizes(mesh)}: "
+          f"{prog['flops'] / 1e12:.6f} TFLOP, {prog['bytes'] / 1e9:.3f} GB, "
+          f"collectives {prog['collectives']} (world 1: none cross a "
+          f"device), compiles {prog['compiles']}")
     return counts, {"cfg": cfg, "state": state, "step": step, "data": data,
                     "optimizer": optimizer}
 
@@ -875,7 +1253,7 @@ def moe_phase(card: str, unsharded: dict, profile: bool = False):
     del state, step, model
     free_device_memory()
 
-    with world1_gang() as mesh:
+    with world1_gang() as (mesh, _group):
         scfg = dataclasses.replace(cfg, attn_impl="ring", mesh=mesh)
         gen = torch.Generator(device="cuda").manual_seed(0)
         smodel = gpt2_init(scfg, gen, device="cuda")
@@ -1056,6 +1434,7 @@ def checkpoint_phase(card: str, sharded: dict):
     from ray_tpu_torch.train.sharded_checkpoint import (load_sharded,
                                                         save_sharded)
     from ray_tpu_torch.train.train_step import TrainState, shard_state
+    from ray_tpu_torch.util import goodput
 
     cfg, state, step, data, optimizer = (
         sharded[k] for k in ("cfg", "state", "step", "data", "optimizer"))
@@ -1065,10 +1444,23 @@ def checkpoint_phase(card: str, sharded: dict):
     try:
         path = f"{work}/checkpoint_{state.step:06d}"
         torch.cuda.synchronize()
+        ckpt_s = goodput.ledger().snapshot()["seconds"]["checkpoint"]
         t0 = time.perf_counter()
         saved = save_sharded(path, tree, mesh=mesh,
                              meta={"step": state.step})
         t_save = time.perf_counter() - t0
+        series = registry_series()
+        save_n, save_sum = need(series, "rt_train_checkpoint_save_seconds",
+                                sharded="1")
+        nbytes = need(series, "rt_checkpoint_bytes")
+        shards = need(series, "rt_checkpoint_shards")
+        ckpt_s = goodput.ledger().snapshot()["seconds"]["checkpoint"] - ckpt_s
+        print(f"  telemetry: rt_checkpoint_bytes {nbytes / 1e9:.3f} GB, "
+              f"rt_checkpoint_shards {shards:.0f}, save histogram {save_n} "
+              f"sample(s) {save_sum:.3f} s, goodput checkpoint +{ckpt_s:.3f} s")
+        if (save_n, nbytes, shards) != (1, saved["bytes"], saved["files"]) \
+                or not ckpt_s > 0:
+            raise RuntimeError("checkpoint telemetry disagrees with the save")
         t0 = time.perf_counter()
         back = load_sharded(path, mesh=mesh)
         torch.cuda.synchronize()
@@ -1076,6 +1468,10 @@ def checkpoint_phase(card: str, sharded: dict):
         t0 = time.perf_counter()
         host = load_sharded(path)
         t_host = time.perf_counter() - t0
+        restores = need(registry_series(),
+                        "rt_train_checkpoint_restore_seconds", sharded="1")
+        if restores[0] != 2:
+            raise RuntimeError(f"restore histogram: {restores}")
         gb = saved["bytes"] / 1e9
         print(f"  saved {saved['files']} files, {gb:.3f} GB in {t_save:.2f} "
               f"s ({gb / t_save:.3f} GB/s); restored onto the mesh in "
@@ -1147,9 +1543,12 @@ SERVE_ENGINE = dict(page_size=16, num_pages=256, max_batch=8,
 def serve_requests(dep, prompts, max_tokens: int, clients: int):
     """``bench.py --serve-llm``'s client loop without the serve plane:
     ``clients`` threads, each sending its share of ``prompts`` one after
-    another through ``LLMDeployment.__call__`` and reading every frame.
+    another through ``LLMDeployment.__call__`` and reading every frame,
+    request i under the request id ``req-<i>`` (``tracing.request_scope``).
     Returns each request's frames, TTFT and inter-token gaps (seconds,
     host clock) and the wall time of the whole load."""
+    from ray_tpu_torch.util import tracing
+
     per = len(prompts) // clients
     results = [None] * len(prompts)
 
@@ -1157,10 +1556,12 @@ def serve_requests(dep, prompts, max_tokens: int, clients: int):
         for i in range(c * per, (c + 1) * per):
             t0 = time.perf_counter()
             frames, stamps = [], []
-            for fr in dep({"prompt": prompts[i], "max_tokens": max_tokens}):
-                frames.append(fr)
-                if "token" in fr:
-                    stamps.append(time.perf_counter())
+            with tracing.request_scope(f"req-{i}"):
+                for fr in dep({"prompt": prompts[i],
+                               "max_tokens": max_tokens}):
+                    frames.append(fr)
+                    if "token" in fr:
+                        stamps.append(time.perf_counter())
             results[i] = {"frames": frames,
                           "ttft": stamps[0] - t0 if stamps else None,
                           "gaps": [b - a for a, b in zip(stamps, stamps[1:])]}
@@ -1207,7 +1608,9 @@ def serve_load(model_cfg, clients: int, per_client: int, prompt_len: int,
     """Build an ``LLMDeployment`` (seed 0; its engine warms up in the
     background), wait for it, warm the request path with one request
     kept out of the accounting, then run the load and check it.
-    Returns the load's record, each request's tokens and the prompts."""
+    Returns the load's record (with the metrics registry just before and
+    just after the load, and the span ring after it), each request's
+    tokens and the prompts."""
     import numpy as np
     import torch
 
@@ -1224,8 +1627,10 @@ def serve_load(model_cfg, clients: int, per_client: int, prompt_len: int,
         dep.stats()                       # waits for build + warmup
         ready_s = time.perf_counter() - t0
         list(dep({"prompt": prompts[0], "max_tokens": 4, "warmup": True}))
+        series_before = registry_series()
         results, wall = serve_requests(dep, prompts, max_tokens, clients)
         stats = dep.stats()
+        series_after = registry_series()
     finally:
         dep.stop()
     tokens = check_requests(results, max_tokens)
@@ -1240,7 +1645,8 @@ def serve_load(model_cfg, clients: int, per_client: int, prompt_len: int,
     load = {"results": results, "wall": wall, "stats": stats,
             "ready_s": ready_s, "prompt_len": prompt_len,
             "max_tokens": max_tokens,
-            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "series": (series_before, series_after)}
     return load, tokens, prompts
 
 
@@ -1267,6 +1673,71 @@ def load_numbers(model_cfg, load, card: str):
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 (card: {card}); peak "
           f"memory {out['peak_memory_gib']:.2f} GiB")
     return out
+
+
+def check_serve_telemetry(load, num_pages: int, card: str):
+    """The engine's series over the load (the registry's change from
+    just before to just after it): tokens and prefill tokens, TPOT and
+    TTFT-phase samples, one waiting, prefill and decode span per request
+    id, the page gauges back to 0 of ``num_pages``, and the programs
+    ``llm_decode`` and ``llm_prefill[...]`` registered with xprof.  The
+    load's spans go through ``build_trace`` into a Chrome trace in a
+    temporary directory; one request's hop chain and TTFT phases are
+    printed."""
+    import tempfile
+
+    from ray_tpu_torch.util import reqtrace, spans, timeline, xprof
+
+    before, after = load["series"]
+    n = len(load["results"])
+    prompt, max_tokens = load["prompt_len"], load["max_tokens"]
+
+    def delta(name, **tags):
+        key = (name, tuple(sorted(tags.items())))
+        a, b = after.get(key, 0), before.get(key, 0)
+        return a[0] - (b[0] if b else 0) if isinstance(a, tuple) else a - b
+
+    got = {"tokens": delta("rt_llm_tokens_total"),
+           "prefill tokens": delta("rt_llm_prefill_tokens_total"),
+           "tpot samples": delta("rt_llm_tpot_seconds"),
+           "ttft engine_waiting": delta("rt_serve_ttft_phase_seconds",
+                                        phase="engine_waiting"),
+           "ttft prefill": delta("rt_serve_ttft_phase_seconds",
+                                 phase="prefill"),
+           "pages used": need(after, "rt_llm_kv_pages_used"),
+           "pages total": need(after, "rt_llm_kv_pages_total")}
+    want = {"tokens": n * max_tokens, "prefill tokens": n * prompt,
+            "tpot samples": n * (max_tokens - 1), "ttft engine_waiting": n,
+            "ttft prefill": n, "pages used": 0, "pages total": num_pages}
+    rids = {f"req-{i}" for i in range(n)}
+    load_spans = [sp for sp in spans.snapshot()
+                  if reqtrace.request_id_of(sp) in rids]
+    found = set(reqtrace.find_request_ids(load_spans, prefix="req-"))
+    names = {}
+    for sp in load_spans:
+        names.setdefault(reqtrace.request_id_of(sp), []).append(sp["name"])
+    programs = sorted(xprof.local_programs())
+    print(f"  telemetry over the load: {json.dumps(got)}; spans "
+          f"{len(load_spans)} of {len(rids)} request ids; programs "
+          f"{programs}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/serve_trace.json"
+        with open(path, "w") as f:
+            json.dump(timeline.build_trace([], load_spans), f)
+        with open(path) as f:
+            n_events = len(json.load(f))
+    trace = reqtrace.assemble_trace(load_spans, "req-0")
+    print(f"  Chrome trace of the load: {n_events} events; req-0's TTFT "
+          f"phases (s) {json.dumps(reqtrace.ttft_phases(trace['hops']))}, "
+          f"hops (card: {card}):")
+    for line in reqtrace.render_trace(trace).splitlines():
+        print("  | " + line)
+    if got != want or found != rids or any(sorted(names.get(r, [])) != [
+            "decode", "engine_waiting", "prefill"] for r in rids) \
+            or "llm_decode" not in programs \
+            or not any(p.startswith("llm_prefill[") for p in programs):
+        raise RuntimeError(f"serve telemetry: {got} against {want}, spans "
+                           f"{names}, programs {programs}")
 
 
 def check_logit_gaps(model, prompts, tokens):
@@ -1421,6 +1892,7 @@ def serve_gpt2(card: str):
     load, tokens, prompts = serve_load(cfg, clients=8, per_client=4,
                                        prompt_len=16, max_tokens=32)
     out = load_numbers(cfg, load, card)
+    check_serve_telemetry(load, SERVE_ENGINE["num_pages"], card)
     free_device_memory()
     # The engine's weights, made again from the same seed on the card.
     model = gpt2_init(cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -1527,11 +1999,18 @@ def main() -> int:
     counts, unsharded = main_path(card, profile=profile)
     free_device_memory()
 
+    print("[telemetry] the main path through make_sharded_train_step("
+          "telemetry=True), TrainSession.iter_device_batches and "
+          "session.report: goodput, the xprof harvest, the decomposition")
+    telemetry = telemetry_phase(card, unsharded)
+    free_device_memory()
+
     print("[sharded] GPT-2 124M, B16 T1024, world-1 NCCL gang, DTensor "
           "state, ring attention, full-logits loss")
-    with world1_gang() as mesh:
+    with world1_gang() as (mesh, group_name):
         _counts, sharded = sharded_path(card, unsharded, mesh,
                                         profile=profile)
+        nccl_telemetry(group_name, card)
         print("[checkpoint] the [sharded] state: save_sharded, load_sharded "
               "onto the mesh and on the host, one more step from each")
         checkpoint_phase(card, sharded)
@@ -1566,6 +2045,7 @@ def main() -> int:
                     **results[name])
                for name in ("flash_fwd", "flash_dkv", "flash_dq")]
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"serving": serving}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,12 @@ made apart from it (``standalone_gloo_group``), which the functional
 ``torch.distributed`` API refuses.  Subclasses say where a tensor must
 lie for the backend (``_stage``) and where the result goes back to
 (``_unstage``).
+
+Every collective op runs inside ``_gang_op``: the gang-op telemetry of
+``collective/telemetry.py`` (latency histogram, bus bandwidth, flight
+record, span, the entry watchdog's stamp with a per-group sequence
+number).  Point-to-point ``send``/``recv`` are untimed, as in the JAX
+groups.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import List
 import torch
 import torch.distributed as dist
 
+from .. import telemetry
 from ..types import ReduceOp
 
 _TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -39,7 +46,7 @@ _MAX_NDIM = 8
 class TorchGroup:
     """One rank's membership in a named group over ``process_group``."""
 
-    backend = ""
+    backend = ""     # the Backend value: the telemetry's backend tag
 
     def __init__(self, group_name: str, world_size: int, rank: int,
                  process_group):
@@ -47,6 +54,7 @@ class TorchGroup:
         self.world_size = world_size
         self.rank = rank
         self.process_group = process_group
+        self._gang_seq = 0
 
     # ------------------------------------------------------- placement
     def _stage(self, tensor: torch.Tensor) -> torch.Tensor:
@@ -61,11 +69,20 @@ class TorchGroup:
         """Where the backend receives."""
         raise NotImplementedError
 
+    def _completed(self) -> None:
+        """Return once the op just issued has completed (``wait()`` on
+        a gloo op already has)."""
+
+    @contextlib.contextmanager
     def _gang_op(self, op: str, nbytes: int = 0):
-        """No-op hook where the JAX groups stamp the gang-op telemetry
-        (``collective/telemetry.py``); the port's telemetry plane is a
-        later slice."""
-        return contextlib.nullcontext()
+        """Time one collective (``telemetry.timed_op``, with this
+        group's next gang sequence number), up to its completion."""
+        self._gang_seq += 1
+        with telemetry.timed_op(op, self.backend, self.world_size, nbytes,
+                                group_name=self.group_name, rank=self.rank,
+                                seq=self._gang_seq):
+            yield
+            self._completed()
 
     # -------------------------------------------------------------- ops
     def allreduce(self, tensor, op: ReduceOp = ReduceOp.SUM):

@@ -15,11 +15,12 @@ from __future__ import annotations
 
 import torch
 
+from ..types import Backend
 from .base import TorchGroup
 
 
 class CPUGroup(TorchGroup):
-    backend = "gloo"
+    backend = Backend.CPU.value
 
     def _stage(self, tensor: torch.Tensor) -> torch.Tensor:
         return tensor.detach().to("cpu", copy=True)

@@ -6,18 +6,21 @@ eager collectives as compiled programs over the global mesh.  Here the
 group is a ``torch.distributed`` NCCL process group: every op takes CUDA
 tensors and leaves its result on the device.  A CPU tensor raises; there
 is no quiet staging or other backend.  Point-to-point works too (NCCL
-has it), where the XLA group raises and points to ``ppermute``.
+has it), where the XLA group raises and points to ``ppermute``.  Each
+timed collective synchronises the stream before its telemetry records
+the latency, so the number covers the op's completion, not its launch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..types import Backend
 from .base import TorchGroup
 
 
 class NCCLGroup(TorchGroup):
-    backend = "nccl"
+    backend = Backend.NCCL.value
 
     def _stage(self, tensor: torch.Tensor) -> torch.Tensor:
         if not tensor.is_cuda:
@@ -27,3 +30,8 @@ class NCCLGroup(TorchGroup):
 
     def _device(self) -> torch.device:
         return torch.device("cuda", torch.cuda.current_device())
+
+    def _completed(self) -> None:
+        # ``wait()`` on an NCCL op only orders the current stream after
+        # it; the telemetry's latency must cover the op itself.
+        torch.cuda.current_stream().synchronize()

@@ -25,10 +25,17 @@ per forward.  The forward is a plain call of ``self._fwd`` (tests swap
 it to inject faults) under ``torch.inference_mode()``, entered by
 ``step()`` in whatever thread runs it, the ``llm-engine`` thread
 included: grad mode is thread-local.  The pool is written in place.
-The JAX engine's metrics (``rt_llm_*``), request spans and compiled-
-program registration wait for the port's metrics, spans and tracing
-planes; their hooks (``_count``, ``_publish_gauges``, ``_observe_phase``,
-``_req_span``) are no-ops here.
+
+Telemetry, as in the JAX engine: the counters ``rt_llm_tokens_total``,
+``rt_llm_prefill_tokens_total`` and ``rt_llm_evictions_total``, the
+gauges ``rt_llm_batch_size`` and ``rt_llm_waiting``, the
+``rt_llm_tpot_seconds`` histogram and the TTFT-phase histogram
+(``engine_waiting``, ``prefill``; warmup sequences excluded), in the
+process-local registry (``util/metrics``); a request that carries a
+request id gets ``engine_waiting``, ``prefill`` and ``decode`` spans in
+the span ring (``util/spans``).  The first forward of each (kind,
+shape) runs under ``xprof.harvest_step`` and registers the program
+``llm_prefill[T]`` or ``llm_decode`` with xprof.
 """
 
 from __future__ import annotations
@@ -186,6 +193,39 @@ class GenerationEngine:
         self._ttft_requests = 0
         self._tpot_s_total = 0.0
         self._tpot_count = 0
+        # (kind, token shape) -> the _fwd its program was registered
+        # for: a swapped _fwd (fault injection) registers anew.
+        self._programs: Dict[Any, Any] = {}
+        # Metric handles cached once: the registry dedupes by name, but
+        # re-constructing a Metric per emitted token would pay name
+        # validation and the registry lock on every token.
+        self._metrics = {}
+        try:
+            from ..util.metrics import (Counter, Gauge, Histogram,
+                                        ttft_phase_histogram)
+
+            self._metrics = {
+                "tokens": Counter("rt_llm_tokens_total",
+                                  "Tokens generated."),
+                "prefill": Counter(
+                    "rt_llm_prefill_tokens_total",
+                    "Prompt tokens prefilled into the KV cache."),
+                "evictions": Counter(
+                    "rt_llm_evictions_total",
+                    "Sequences evicted for KV-memory pressure "
+                    "(recompute preemption)."),
+                "batch": Gauge(
+                    "rt_llm_batch_size",
+                    "Sequences in the decode batch this engine step."),
+                "waiting": Gauge("rt_llm_waiting",
+                                 "Sequences queued for admission."),
+                "tpot": Histogram(
+                    "rt_llm_tpot_seconds",
+                    "Inter-token (time-per-output-token) gap."),
+                "ttft_phase": ttft_phase_histogram(),
+            }
+        except Exception:
+            pass
 
     # ----------------------------------------------------------- API
     def start(self) -> "GenerationEngine":
@@ -427,15 +467,33 @@ class GenerationEngine:
         row[:len(seq.pages)] = seq.pages
         return row
 
-    def _forward(self, tokens: np.ndarray, table: np.ndarray,
+    def _forward(self, kind: str, tokens: np.ndarray, table: np.ndarray,
                  positions: np.ndarray) -> torch.Tensor:
         """One forward over host-built int arrays; returns the logits
-        and keeps the pool ``_fwd`` hands back."""
+        and keeps the pool ``_fwd`` hands back.  The first forward of a
+        (kind, token shape) for this ``_fwd`` runs under
+        ``xprof.harvest_step`` and registers ``llm_prefill[T]`` or
+        ``llm_decode``."""
         dev = [torch.from_numpy(a).to(self.device)
                for a in (tokens, table, positions)]
-        logits, k, v = self._fwd(self._params, dev[0],
-                                 self._kv["k_pages"], self._kv["v_pages"],
-                                 dev[1], dev[2])
+        args = (self._params, dev[0], self._kv["k_pages"],
+                self._kv["v_pages"], dev[1], dev[2])
+        key = (kind, tokens.shape)
+        if self._programs.get(key) is self._fwd:
+            logits, k, v = self._fwd(*args)
+        else:
+            from ..util import xprof
+
+            t0 = time.perf_counter()
+            (logits, k, v), info = xprof.harvest_step(self._fwd, *args)
+            self._programs[key] = self._fwd
+            name = f"llm_{kind}[{tokens.shape[1]}]" \
+                if kind == "prefill" else f"llm_{kind}"
+            try:
+                xprof.register_program(
+                    name, info, compile_seconds=time.perf_counter() - t0)
+            except Exception:
+                pass  # observability must never fail the request path
         self._kv["k_pages"], self._kv["v_pages"] = k, v
         return logits
 
@@ -458,8 +516,8 @@ class GenerationEngine:
         tokens[0, :n] = seq.tokens
         positions = np.full((1, pad), -1, np.int64)
         positions[0, :n] = np.arange(n)
-        logits = self._forward(tokens, self._page_table_row(seq)[None, :],
-                               positions)
+        logits = self._forward("prefill", tokens,
+                               self._page_table_row(seq)[None, :], positions)
         seq.n_cached = n
         self._prefill_tokens_total += n
         self._count("prefill", n)
@@ -490,7 +548,7 @@ class GenerationEngine:
             tokens[i, 0] = seq.tokens[-1]
             positions[i, 0] = seq.n_cached
             table[i] = self._page_table_row(seq)
-        logits = self._forward(tokens, table, positions)
+        logits = self._forward("decode", tokens, table, positions)
         logits_np = logits[:len(batch), 0].cpu().numpy()
         for i, seq in enumerate(batch):
             seq.n_cached += 1
@@ -546,8 +604,14 @@ class GenerationEngine:
         now = time.time()
         if seq.generated > 1 and seq.last_token_ts is not None \
                 and not seq.warmup:
-            self._tpot_s_total += max(now - seq.last_token_ts, 0.0)
+            gap = max(now - seq.last_token_ts, 0.0)
+            self._tpot_s_total += gap
             self._tpot_count += 1
+            try:
+                if self._metrics:
+                    self._metrics["tpot"].observe(gap)
+            except Exception:
+                pass
         seq.last_token_ts = now
         seq.out.put({"token": tok, "index": seq.generated - 1})
         eos = self.cfg.eos_id is not None and tok == self.cfg.eos_id
@@ -580,21 +644,44 @@ class GenerationEngine:
             seq.out.put({"done": True, "reason": reason,
                          "n_tokens": seq.generated})
 
-    # ------------------------------------------- metrics, spans (later)
+    # ------------------------------------------------ spans, metrics
     def _req_span(self, seq: _Sequence, name: str, start: float,
                   end: float, tags: Optional[Dict[str, Any]] = None
                   ) -> None:
-        """A request-traced sequence's lifecycle span: waits for the
-        port's spans plane."""
+        """Record one lifecycle span of a request-traced sequence
+        (no-op otherwise: untraced traffic pays nothing)."""
+        if not seq.request_id:
+            return
+        try:
+            from ..util import spans
+
+            spans.record_span(
+                name, start, end, cat="llm",
+                tags={"request_id": seq.request_id, "seq": seq.sid,
+                      **(tags or {})})
+        except Exception:
+            pass
 
     def _observe_phase(self, phase: str, seconds: float) -> None:
-        """The TTFT-phase histogram: waits for the port's metrics
-        plane."""
+        try:
+            if self._metrics:
+                self._metrics["ttft_phase"].observe(
+                    seconds, tags={"phase": phase})
+        except Exception:
+            pass
 
     def _publish_gauges(self) -> None:
-        """The batch-size and waiting gauges: wait for the port's
-        metrics plane."""
+        try:
+            if self._metrics:
+                self._metrics["batch"].set(float(self._last_batch))
+                self._metrics["waiting"].set(
+                    float(len(self._waiting)))
+        except Exception:
+            pass
 
     def _count(self, key: str, n: float = 1.0) -> None:
-        """The token, prefill and eviction counters: wait for the port's
-        metrics plane."""
+        try:
+            if self._metrics:
+                self._metrics[key].inc(n)
+        except Exception:
+            pass

@@ -15,9 +15,9 @@ donates the pool to its jitted step for the same effect) and
 The models reach them through ``layer_caches`` (one forward's per-layer
 caches, with the pool slots of its positions computed once for every
 layer) and ``cached_attention`` (one layer's store and attend).
-``PagePool`` is the host-side allocator; the JAX package's
-``rt_llm_kv_pages_{used,total}`` gauges wait for the port's metrics
-plane.
+``PagePool`` is the host-side allocator; it exports its occupancy as
+the ``rt_llm_kv_pages_{used,total}`` gauges on every transition, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -150,7 +150,9 @@ class PagePool:
 
     All-or-nothing allocation (a sequence either gets every page it
     asked for or stays queued: partial grants would deadlock two growing
-    sequences against each other) and a LIFO free list for locality.
+    sequences against each other), a LIFO free list for locality, and
+    occupancy exported as ``rt_llm_kv_pages_used`` /
+    ``rt_llm_kv_pages_total`` gauges on every transition.
     """
 
     def __init__(self, num_pages: int, page_size: int):
@@ -160,6 +162,20 @@ class PagePool:
         self.page_size = int(page_size)
         self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
         self._lock = threading.Lock()
+        # Gauge handles cached once: alloc/free is on the decode path.
+        self._gauges = None
+        try:
+            from ..util.metrics import Gauge
+
+            self._gauges = (
+                Gauge("rt_llm_kv_pages_used",
+                      "KV-cache pages currently allocated to "
+                      "sequences."),
+                Gauge("rt_llm_kv_pages_total",
+                      "Total KV-cache pages in the device pool."))
+        except Exception:
+            pass
+        self._publish(self.num_pages)
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """n pages or None (never a partial grant)."""
@@ -168,17 +184,22 @@ class PagePool:
         with self._lock:
             if len(self._free) < n:
                 return None
-            return [self._free.pop() for _ in range(n)]
+            pages = [self._free.pop() for _ in range(n)]
+            free_now = len(self._free)
+        self._publish(free_now)
+        return pages
 
     def free(self, pages: List[int]) -> None:
         if not pages:
             return
         with self._lock:
             self._free.extend(pages)
-            if len(self._free) > self.num_pages:
+            free_now = len(self._free)
+            if free_now > self.num_pages:
                 raise AssertionError(
-                    f"page pool over-freed: {len(self._free)} free of "
+                    f"page pool over-freed: {free_now} free of "
                     f"{self.num_pages}")
+        self._publish(free_now)
 
     @property
     def available(self) -> int:
@@ -188,3 +209,12 @@ class PagePool:
     @property
     def used(self) -> int:
         return self.num_pages - self.available
+
+    def _publish(self, free_now: int) -> None:
+        if self._gauges is None:
+            return
+        try:
+            self._gauges[0].set(float(self.num_pages - free_now))
+            self._gauges[1].set(float(self.num_pages))
+        except Exception:
+            pass

@@ -8,9 +8,11 @@ requests wait for readiness.  A consumer that closes the stream
 mid-generation runs the generator's ``finally``, which cancels the
 sequence and frees its KV pages.
 
-The JAX deployment reads the request id from its tracing plane and
-``llm_deployment`` builds a serve application; the port has neither
-plane yet, so the request id is None and ``llm_deployment`` raises.
+Each request runs under the request id of the caller's tracing context
+(``util.tracing.request_scope``), so the engine records its
+waiting/prefill/decode spans under it.  ``llm_deployment`` builds a
+serve application in the JAX package; the port has no serve plane yet,
+so it raises.
 """
 
 from __future__ import annotations
@@ -70,6 +72,11 @@ class LLMDeployment:
     def __call__(self, payload: Optional[Dict[str, Any]]):
         engine = self._engine_or_raise()
         payload = payload or {}
+        # The request id of the caller's tracing context opts this
+        # sequence into lifecycle spans.
+        from ..util import tracing
+
+        rid = tracing.current_request_id()
         try:
             prompt = [int(t) for t in payload["prompt"]]
             params = SamplingParams(
@@ -81,7 +88,7 @@ class LLMDeployment:
                 max_tokens=payload.get("max_tokens"),
                 params=params,
                 seed=payload.get("seed"),
-                request_id=None,
+                request_id=rid,
                 # {"warmup": true} keeps a client's priming request out
                 # of the TTFT/TPOT accounting.
                 _warmup=bool(payload.get("warmup")))

@@ -30,8 +30,11 @@ take every T that is a multiple of ``_kernels.TILE`` (64).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from ..util import xprof
 from . import _kernels
 from .matmul import matmul_f32
 
@@ -150,16 +153,47 @@ def flash_dq_plain(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     return dq
 
 
+# ------------------------------------------------------------ cost
+def flash_cost(kernel: str, bh: int, t: int, d: int, causal: bool,
+               itemsize: int = 2) -> Tuple[float, float]:
+    """The work of one call of ``kernel`` ("flash_fwd", "flash_dkv" or
+    "flash_dq") on B*H = ``bh`` heads of T = ``t`` rows and width ``d``:
+    (FLOPs of its matrix products over the visible (q, k) pairs, bytes
+    with each input read once and each output written once, elements
+    of ``itemsize`` bytes and fp32 rows).  One formula for the xprof
+    harvest (``_cost``) and the kernels' roofline bound in
+    ``chip_smoke.py``."""
+    pairs = t * (t + 1) // 2 if causal else t * t    # visible (q, k) pairs
+    tile = bh * t * d * itemsize                     # one [BH, T, D]
+    rows = bh * t * 4                                # one fp32 [BH, T]
+    flops, nbytes = {
+        "flash_fwd": (4 * d * pairs * bh, 4 * tile + rows),
+        "flash_dkv": (8 * d * pairs * bh, 6 * tile + 2 * rows),
+        "flash_dq": (6 * d * pairs * bh, 5 * tile + 2 * rows),
+    }[kernel]
+    return float(flops), float(nbytes)
+
+
+def _cost(kernel: str, q: torch.Tensor, causal: bool):
+    """Count one launch of ``kernel`` on ``q``'s shape in an xprof
+    harvest, whichever route runs (the plain version's own ops are not
+    counted)."""
+    b, t, h, d = q.shape
+    return xprof.kernel(kernel, *flash_cost(kernel, b * h, t, d, causal,
+                                            q.element_size()))
+
+
 # ------------------------------------------------ device dispatch
 def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
 
 
 def _flash_forward(q, k, v, *, scale, bq, bk, causal):
-    if _on_cpu(q):
-        return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
-                               block_q=bq, block_k=bk)
-    return _kernels.flash_fwd(q, k, v, scale=scale, causal=causal)
+    with _cost("flash_fwd", q, causal):
+        if _on_cpu(q):
+            return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
+                                   block_q=bq, block_k=bk)
+        return _kernels.flash_fwd(q, k, v, scale=scale, causal=causal)
 
 
 def _flash_backward(res, do, *, scale, bq, bk, causal, dlse=None):
@@ -175,13 +209,17 @@ def _flash_backward(res, do, *, scale, bq, bk, causal, dlse=None):
     do = do.contiguous()
     if _on_cpu(q):
         kw = dict(scale=scale, causal=causal, block_q=bq, block_k=bk)
-        dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, **kw)
-        dq = flash_dq_plain(q, k, v, do, lse, delta, **kw)
+        with _cost("flash_dkv", q, causal):
+            dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, **kw)
+        with _cost("flash_dq", q, causal):
+            dq = flash_dq_plain(q, k, v, do, lse, delta, **kw)
     else:
-        dk, dv = _kernels.flash_dkv(q, k, v, do, lse, delta, scale=scale,
-                                    causal=causal)
-        dq = _kernels.flash_dq(q, k, v, do, lse, delta, scale=scale,
-                               causal=causal)
+        with _cost("flash_dkv", q, causal):
+            dk, dv = _kernels.flash_dkv(q, k, v, do, lse, delta,
+                                        scale=scale, causal=causal)
+        with _cost("flash_dq", q, causal):
+            dq = _kernels.flash_dq(q, k, v, do, lse, delta, scale=scale,
+                                   causal=causal)
     return dq, dk, dv
 
 

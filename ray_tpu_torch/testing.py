@@ -319,3 +319,22 @@ def checkpoint_cases(rank: int, world: int, rendezvous: str, jax_dir: str,
     finally:
         col.destroy_collective_group("gang")
     return restored, after1, straight, resumed, kept, again.step
+
+
+def harvest_case(rank: int, world: int, rendezvous: str, cfg, axes,
+                 tokens):
+    """One sharded step (``dryrun.sharded_steps``, telemetry on) on the
+    mesh ``axes``; returns the program ``train_step`` the step
+    registered with xprof and the names of the registry's series."""
+    from . import collective as col
+    from .dryrun import join, sharded_steps
+    from .util import xprof
+    from .util.metrics import registry
+
+    join(rank, world, rendezvous)
+    try:
+        sharded_steps(cfg, None, axes, [tokens], device="cpu")
+    finally:
+        col.destroy_collective_group("gang")
+    return (xprof.local_programs().get("train_step"),
+            sorted(s["name"] for s in registry().snapshot()))

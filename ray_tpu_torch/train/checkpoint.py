@@ -7,8 +7,10 @@ pytree payloads); ``CheckpointManager`` keeps the latest or top-k
 checkpoints of a run directory and finds the newest committed one on
 resume.  Pytree payloads use flax's msgpack layout
 (``util/flax_msgpack.py``), so ``.msgpack`` files move between the two
-packages.  The JAX package times each payload read and write into its
-goodput ledger; the port's telemetry plane is a later slice.
+packages.  Each payload write and read, and the manager's copy of a
+checkpoint into the run directory, runs in the goodput ``checkpoint``
+phase and observes ``rt_train_checkpoint_{save,restore}_seconds``
+(tag ``sharded="0"``), as in the JAX package.
 
 Durability contract (shared with the sharded plane): every write path
 stages into a temp name and commits with one ``os.replace``; a
@@ -32,6 +34,20 @@ from ..util.checkpoint_fs import (COMMIT_MARKER,  # noqa: F401
                                   TMP_SUFFIX, atomic_write,
                                   is_committed, mark_committed,
                                   scan_run_dir)
+
+
+@contextmanager
+def _timed_ckpt(metric: str, sharded: bool = False):
+    """Attribute checkpoint I/O to the goodput ledger and observe its
+    duration histogram (save vs restore, sharded vs blob)."""
+    from ..util import goodput
+
+    with goodput.timed_phase(
+            "checkpoint", metric,
+            "Checkpoint payload save/restore duration.",
+            tags={"sharded": "1" if sharded else "0"},
+            tag_keys=("sharded",)):
+        yield
 
 
 def _restore_into(target: Any, state: Any) -> Any:
@@ -100,11 +116,12 @@ class Checkpoint:
         scalars) as ``<name>.msgpack`` in flax's layout."""
         from ..util.flax_msgpack import to_bytes
 
-        os.makedirs(self.path, exist_ok=True)
-        # Stage + atomic rename: a SIGKILL mid-write must never leave a
-        # truncated msgpack under the committed name.
-        atomic_write(os.path.join(self.path, name + ".msgpack"),
-                     to_bytes(tree))
+        with _timed_ckpt("rt_train_checkpoint_save_seconds"):
+            os.makedirs(self.path, exist_ok=True)
+            # Stage + atomic rename: a SIGKILL mid-write must never
+            # leave a truncated msgpack under the committed name.
+            atomic_write(os.path.join(self.path, name + ".msgpack"),
+                         to_bytes(tree))
 
     def load_pytree(self, name: str, target: Any = None) -> Any:
         """The state dict of ``<name>.msgpack`` (arrays as numpy,
@@ -113,8 +130,10 @@ class Checkpoint:
         tensor of its dtype on its device)."""
         from ..util.flax_msgpack import msgpack_restore
 
-        with open(os.path.join(self.path, name + ".msgpack"), "rb") as f:
-            state = msgpack_restore(f.read())
+        with _timed_ckpt("rt_train_checkpoint_restore_seconds"):
+            with open(os.path.join(self.path, name + ".msgpack"),
+                      "rb") as f:
+                state = msgpack_restore(f.read())
         return state if target is None else _restore_into(target, state)
 
     def save_json(self, name: str, obj: Dict) -> None:
@@ -160,16 +179,17 @@ class CheckpointManager:
             idx = self._index
             dest = os.path.join(self.run_dir,
                                 f"checkpoint_{idx:06d}")
-            # Two-phase: copy into a staging dir, mark it committed,
-            # then one atomic rename — a crash mid-copytree leaves only
-            # an ignorable *.tmp.
-            stage = dest + ".tmp"
-            shutil.rmtree(stage, ignore_errors=True)
-            shutil.copytree(source, stage)
-            mark_committed(stage)
-            if os.path.isdir(dest):
-                shutil.rmtree(dest, ignore_errors=True)
-            os.replace(stage, dest)
+            with _timed_ckpt("rt_train_checkpoint_save_seconds"):
+                # Two-phase: copy into a staging dir, mark it committed,
+                # then one atomic rename — a crash mid-copytree leaves
+                # only an ignorable *.tmp.
+                stage = dest + ".tmp"
+                shutil.rmtree(stage, ignore_errors=True)
+                shutil.copytree(source, stage)
+                mark_committed(stage)
+                if os.path.isdir(dest):
+                    shutil.rmtree(dest, ignore_errors=True)
+                os.replace(stage, dest)
         score = None
         if self.score_attribute and metrics:
             score = metrics.get(self.score_attribute)

@@ -31,9 +31,12 @@ bfloat16 leaves raise: numpy has no bfloat16, and ``np.save`` of JAX's
 package's restore can turn back into numbers.  Train states are
 float32.
 
-The JAX save's goodput phase and its save metrics (``_observe_save``)
-are the no-op hook ``_observe_save`` here; the port's telemetry plane
-is a later slice.
+Telemetry, as in the JAX package: a save runs in the goodput
+``checkpoint`` phase (inside a ``checkpoint_on_notice`` block that outer
+phase keeps the time) and ``_observe_save`` records
+``rt_train_checkpoint_save_seconds{sharded="1"}``, ``rt_checkpoint_bytes``
+and ``rt_checkpoint_shards`` of this rank's write; a restore runs in
+``checkpoint`` and observes ``rt_train_checkpoint_restore_seconds``.
 """
 
 from __future__ import annotations
@@ -399,19 +402,42 @@ def save_sharded(path: str, tree: Any, *,
 
     Returns ``{"path", "bytes", "files", "committed"}`` for the calling
     rank (``committed`` is True only on the committing rank)."""
+    from contextlib import nullcontext
+
+    from ..util import goodput
+
+    # Inside a checkpoint-on-notice block the OUTER phase owns the
+    # wall-clock; only a periodic save enters the checkpoint phase.
+    phase_cm = (nullcontext()
+                if goodput.current_phase() == "checkpoint_on_notice"
+                else goodput.ledger().phase("checkpoint"))
     t0 = time.monotonic()
-    result = _save_sharded_inner(
-        path, tree, specs=specs, mesh_axes=mesh_axes,
-        process_index=process_index, process_count=process_count,
-        meta=meta, wait_timeout_s=wait_timeout_s, save_id=save_id,
-        mesh=mesh)
+    with phase_cm:
+        result = _save_sharded_inner(
+            path, tree, specs=specs, mesh_axes=mesh_axes,
+            process_index=process_index, process_count=process_count,
+            meta=meta, wait_timeout_s=wait_timeout_s, save_id=save_id,
+            mesh=mesh)
     _observe_save(result, time.monotonic() - t0)
     return result
 
 
-def _observe_save(result: Dict[str, Any], seconds: float) -> None:
-    """No-op hook where the JAX package records the save in the goodput
-    ledger and its checkpoint metrics."""
+def _observe_save(result: Dict[str, Any], dt: float) -> None:
+    try:
+        from ..util.metrics import Gauge, Histogram
+
+        Histogram("rt_train_checkpoint_save_seconds",
+                  "Checkpoint payload save/restore duration.",
+                  tag_keys=("sharded",)).observe(
+            dt, tags={"sharded": "1"})
+        Gauge("rt_checkpoint_bytes",
+              "Bytes this process wrote into its most recent "
+              "checkpoint save.").set(float(result["bytes"]))
+        Gauge("rt_checkpoint_shards",
+              "Shard files this process wrote into its most recent "
+              "checkpoint save.").set(float(result["files"]))
+    except Exception:
+        pass  # telemetry must never fail a save
 
 
 def _save_sharded_inner(path: str, tree: Any, *, specs, mesh_axes,
@@ -743,6 +769,17 @@ def load_sharded(path: str, *, mesh=None, specs: Any = None,
 
     ``validate`` checks the CRC of every shard file actually read; a
     mismatch raises :class:`CheckpointCorruptError`."""
+    from ..util import goodput
+
+    with goodput.timed_phase(
+            "checkpoint", "rt_train_checkpoint_restore_seconds",
+            "Checkpoint payload save/restore duration.",
+            tags={"sharded": "1"}, tag_keys=("sharded",)):
+        return _load_sharded_inner(path, mesh=mesh, specs=specs,
+                                   target=target, validate=validate)
+
+
+def _load_sharded_inner(path, *, mesh, specs, target, validate):
     manifest = read_manifest(path)
     by_leaf: Dict[str, List[Dict]] = {}
     for ent in manifest.get("files", []):

@@ -232,7 +232,7 @@ def sharded_global_norm(grads: List[torch.Tensor],
 
 
 def make_sharded_train_step(loss_fn: Callable, optimizer: ClippedAdamW,
-                            mesh):
+                            mesh=None, telemetry: bool = True):
     """``make_train_step`` for a state placed by ``shard_state`` on
     ``mesh``, with the batch a DTensor (``train.distributed.
     put_global_batch`` or ``parallel.sharding.distribute``).  Returns
@@ -240,11 +240,26 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: ClippedAdamW,
     plain tensors with the same value on every rank.  Each replica group
     (the ``dcn`` x ``data`` axes, outside DTensor) takes the mean loss of
     its own rows; the step averages gradients and loss over the groups.
+    With ``mesh=None`` the step is ``make_train_step``'s.
 
     The JAX step's ``donate`` and ``state_shardings`` have nothing to do
     here: the update is in place, and the DTensors carry their
-    placements.  Its goodput/xprof telemetry is the no-op hook
-    ``_step_phase``; the port's telemetry plane is a later slice."""
+    placements.
+
+    With ``telemetry`` (default), each call is timed on the host and
+    attributed to the goodput ledger (``_step_phase``): the first call
+    (lazy initialisation, the allocator's warm-up and one
+    ``xprof.harvest_step`` pass, which counts the step's FLOPs, bytes,
+    memory and collectives) lands in ``compile``, sets
+    ``rt_train_compile_seconds`` and registers the program
+    ``train_step`` with xprof, its collectives attributed to the mesh's
+    axes; later calls land in ``compute`` and feed
+    ``rt_train_step_dispatch_seconds``.  On the card the host returns
+    before the device finishes, so those seconds are dispatch times; the
+    per-step truth is the session's ``rt_train_step_time_seconds``."""
+    if mesh is None:
+        step = make_train_step(loss_fn, optimizer)
+        return _step_phase(step, None) if telemetry else step
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -271,34 +286,70 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: ClippedAdamW,
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = list(state.model.parameters())
-        with _step_phase(state.step):
-            loss = loss_fn(state.model, batch)
-            grads = torch.autograd.grad(loss, params)
-            with torch.no_grad():
-                grads = [g.redistribute(p.device_mesh, p.placements)
-                         for g, p in zip(grads, params)]
-                replica_mean([_local(g) for g in grads])
-                norm = sharded_global_norm(grads, n_replicas)
-                opt = state.opt_state
-                local = {"count": opt["count"],
-                         "mu": [_local(m) for m in opt["mu"]],
-                         "nu": [_local(v) for v in opt["nu"]]}
-                optimizer.update([_local(g) for g in grads], local,
-                                 [_local(p) for p in params], norm=norm)
-                opt["count"] = local["count"]
+        loss = loss_fn(state.model, batch)
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, params)]
+            replica_mean([_local(g) for g in grads])
+            norm = sharded_global_norm(grads, n_replicas)
+            opt = state.opt_state
+            local = {"count": opt["count"],
+                     "mu": [_local(m) for m in opt["mu"]],
+                     "nu": [_local(v) for v in opt["nu"]]}
+            optimizer.update([_local(g) for g in grads], local,
+                             [_local(p) for p in params], norm=norm)
+            opt["count"] = local["count"]
         state.step += 1
         loss = loss.full_tensor() if isinstance(loss, DTensor) else loss
         loss = loss.detach().reshape(1)
         replica_mean([loss])
         return state, {"loss": loss[0], "grad_norm": norm}
 
-    return step
+    return _step_phase(step, mesh) if telemetry else step
 
 
-def _step_phase(step: int):
-    """No-op hook where the JAX step times each call into the goodput
-    ledger (compile vs compute) and registers the compiled program with
-    xprof."""
-    import contextlib
+def _step_phase(step: Callable, mesh) -> Callable:
+    """``step`` timed into the goodput ledger: the first call in
+    ``compile`` (through ``xprof.harvest_step``, registering the program
+    ``train_step``), later ones in ``compute``."""
+    import time
 
-    return contextlib.nullcontext()
+    from ..util import goodput, xprof
+    from ..util.metrics import Gauge, Histogram
+
+    mesh_axes = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_axis_sizes
+
+        mesh_axes = mesh_axis_sizes(mesh)
+    harvested = [False]
+
+    def timed_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        first = not harvested[0]
+        t0 = time.perf_counter()
+        with goodput.ledger().phase("compile" if first else "compute"):
+            if first:
+                out, info = xprof.harvest_step(step, state, batch,
+                                               mesh_axes=mesh_axes)
+                harvested[0] = True
+            else:
+                out = step(state, batch)
+        dt = time.perf_counter() - t0
+        try:
+            if first:
+                Gauge("rt_train_compile_seconds",
+                      "Host-side duration of the first (tracing + "
+                      "XLA compile) step invocation.").set(dt)
+                xprof.register_program("train_step", info,
+                                       compile_seconds=dt)
+            else:
+                Histogram("rt_train_step_dispatch_seconds",
+                          "Host-side duration of the jitted step call "
+                          "(approximate under async dispatch)."
+                          ).observe(dt)
+        except Exception:
+            pass  # telemetry must never fail a training step
+        return out
+
+    return timed_step

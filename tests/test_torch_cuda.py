@@ -435,3 +435,121 @@ def test_world1_checkpoint_round_trip_of_dtensor_state(card, nccl_gang,
     assert float(m1["loss"]) == float(m2["loss"])
     for a, b in zip(again.model.parameters(), state.model.parameters()):
         assert torch.equal(a.full_tensor(), b.full_tensor())
+
+
+def test_nccl_timed_op_covers_completion(nccl_gang):
+    """The NCCL group's eager ops record one latency sample per call,
+    tagged backend="nccl"; over 5 alternated rounds an allreduce's and a
+    broadcast's median latency is at least the median CUDA-event time of
+    the same device work (the staging copy into a buffer allocated
+    beforehand, the collective, its wait) without telemetry: the
+    timed region ends after the op has completed, not at its launch.
+    (NCCL's barrier blocks the host in ``wait()`` itself: its event time
+    is the same round trip, so it is held to its count.)"""
+    import statistics
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.util.metrics import registry
+
+    group = col.get_group(nccl_gang.group_name)
+    pg = group.process_group
+    x = torch.ones(64 << 20, device="cuda")            # 256 MiB
+    y = torch.empty_like(x)
+    bcast = dist.BroadcastOptions()
+    bcast.rootRank = 0
+
+    def series(op):
+        for snap in registry().snapshot():
+            if snap["name"] == "rt_collective_latency_seconds":
+                for s in snap["series"]:
+                    if s["tags"] == {"op": op, "backend": "nccl",
+                                     "world": "1"}:
+                        return s["hist"]["count"], s["hist"]["sum"]
+        return 0, 0.0
+
+    for op, call, raw in (
+            ("allreduce", lambda: group.allreduce(x),
+             lambda: pg.allreduce([y.copy_(x)],
+                                  dist.AllreduceOptions()).wait()),
+            ("broadcast", lambda: group.broadcast(x, 0),
+             lambda: pg.broadcast([y.copy_(x)], bcast).wait()),
+            ("barrier", group.barrier,
+             lambda: pg.barrier(dist.BarrierOptions()).wait())):
+        n_pre, _ = series(op)
+        call()                                # sets NCCL up
+        torch.cuda.synchronize()
+        events, latencies = [], []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            raw()
+            end.record()
+            end.synchronize()
+            events.append(start.elapsed_time(end) / 1e3)
+            _, s0 = series(op)
+            call()
+            _, s1 = series(op)
+            latencies.append(s1 - s0)
+        assert series(op)[0] - n_pre == 6
+        assert op == "barrier" or \
+            statistics.median(latencies) >= statistics.median(events)
+
+
+def test_publish_device_memory_on_card(card):
+    """Three series for the one card, ``peak`` equal to the allocator's
+    own peak statistic and ``limit`` to the card's memory."""
+    from ray_tpu_torch.util import xprof
+    from ray_tpu_torch.util.metrics import registry
+
+    torch.ones(1 << 20, device=card)
+    assert xprof.publish_device_memory() == 3
+    got = {s["tags"]["kind"]: s["value"]
+           for snap in registry().snapshot()
+           if snap["name"] == "rt_xla_device_memory_bytes"
+           for s in snap["series"] if s["tags"]["device"] == "0"}
+    stats = torch.cuda.memory_stats(0)
+    assert got["peak"] == stats["allocated_bytes.all.peak"]
+    assert got["limit"] == torch.cuda.mem_get_info(0)[1]
+
+
+def test_harvest_on_card_counts_every_launch_and_changes_nothing(card):
+    """The telemetry step of a tiny bf16 flash GPT-2 (head width 64) on
+    the card: the
+    harvest counts the kernels' forward and backward launches (the
+    backward runs on the autograd engine's thread) from ``flash_cost``,
+    and three steps with and without telemetry give the same bits."""
+    from ray_tpu_torch.ops.flash_attention import flash_cost
+    from ray_tpu_torch.train import train_step as ts
+    from ray_tpu_torch.util import xprof
+
+    cfg = dataclasses.replace(GPT2Config.tiny(), n_head=2,
+                              attn_impl="flash", remat=True)
+    gen = torch.Generator(device=card).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, cfg.max_seq + 1),
+                         generator=gen, device=card)
+    runs = []
+    for telemetry in (True, False):
+        model = gpt2_init(cfg, torch.Generator(device=card).manual_seed(0),
+                          device=card)
+        opt = ts.make_optimizer(total_steps=10, warmup_steps=1)
+        state = ts.TrainState.create(model, opt)
+        step = ts.make_sharded_train_step(
+            lambda m, b: gpt2_loss_fn(cfg, m, b), opt, telemetry=telemetry)
+        losses = [float(step(state, {"tokens": toks})[1]["loss"])
+                  for _ in range(3)]
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    prog = xprof.local_programs()["train_step"]
+    want = {"flash_fwd": 2 * cfg.n_layer, "flash_dkv": cfg.n_layer,
+            "flash_dq": cfg.n_layer}
+    assert {k: v["launches"] for k, v in prog["kernels"].items()} == want
+    d = cfg.d_model // cfg.n_head
+    for k, n in want.items():
+        assert prog["kernels"][k]["flops"] == n * flash_cost(
+            k, 4 * cfg.n_head, cfg.max_seq, d, True)[0]
+    assert prog["memory"]["peak"] >= prog["memory"]["argument"]

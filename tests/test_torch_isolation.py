@@ -1,8 +1,8 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-``ray_tpu_torch``, ``chip_smoke.py`` and the card tests (run where JAX is
-not installed) import ``torch`` and numpy, never ``jax``/``flax``/``optax``
-nor ``ray_tpu`` (a name that ``ray_tpu_torch`` itself starts with, so the
+``ray_tpu_torch``, ``chip_smoke.py``, ``tools/telemetry_spread.py`` and
+the card tests (run where JAX is not installed) import ``torch`` and
+numpy, never ``jax``/``flax``/``optax`` nor ``ray_tpu`` (a name that ``ray_tpu_torch`` itself starts with, so the
 check matches whole dotted prefixes), nor ``msgpack`` (the card machine
 lacks it; the port keeps its own codec for flax's layout).  Entry
 points called without a device run on CUDA or raise.
@@ -44,6 +44,7 @@ def test_forbidden_matches_whole_prefixes():
 
 
 @pytest.mark.parametrize("target", ["ray_tpu_torch", "chip_smoke.py",
+                                    "tools/telemetry_spread.py",
                                     "tests/test_torch_cuda.py"])
 def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
@@ -84,6 +85,14 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.util.flax_msgpack\n"
         "import ray_tpu_torch.train.sharded_checkpoint\n"
         "import ray_tpu_torch.train.checkpoint\n"
+        "import ray_tpu_torch.util.metrics, ray_tpu_torch.util.spans\n"
+        "import ray_tpu_torch.util.flight_recorder\n"
+        "import ray_tpu_torch.util.tracing, ray_tpu_torch.util.goodput\n"
+        "import ray_tpu_torch.util.reqtrace, ray_tpu_torch.util.timeline\n"
+        "import ray_tpu_torch.util.telemetry, ray_tpu_torch.util.xprof\n"
+        "import ray_tpu_torch.util.prefetch\n"
+        "import ray_tpu_torch.collective.telemetry\n"
+        "import ray_tpu_torch.train.config, ray_tpu_torch.train.session\n"
         "print(sorted(bad() - before))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -106,7 +115,12 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "ops/moe.py", "parallel/pipeline.py",
                    "parallel/grad_collectives.py", "util/checkpoint_fs.py",
                    "util/flax_msgpack.py", "train/sharded_checkpoint.py",
-                   "train/checkpoint.py"):
+                   "train/checkpoint.py", "util/metrics.py",
+                   "util/flight_recorder.py", "util/spans.py",
+                   "util/tracing.py", "util/goodput.py", "util/reqtrace.py",
+                   "util/timeline.py", "util/telemetry.py", "util/xprof.py",
+                   "util/prefetch.py", "collective/telemetry.py",
+                   "train/config.py", "train/session.py"):
         assert module in files
 
 
@@ -119,6 +133,7 @@ def test_no_device_means_cuda_or_raise(monkeypatch):
     from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_init
     from ray_tpu_torch.ops.moe import MoEMLP
     from ray_tpu_torch.train.distributed import setup_distributed_mesh
+    from ray_tpu_torch.train.session import TrainSession, iter_device_batches
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -133,7 +148,10 @@ def test_no_device_means_cuda_or_raise(monkeypatch):
                   lambda: GenerationEngine(model="llama"),
                   lambda: init_cache(1, 1, 1, 1, 1, torch.float32),
                   lambda: setup_distributed_mesh(rank=0, world=1),
-                  lambda: col.init_collective_group(1, 0, backend="nccl")):
+                  lambda: col.init_collective_group(1, 0, backend="nccl"),
+                  lambda: iter_device_batches([]),
+                  lambda: TrainSession(0, 1, 0, 1, 0, "x")
+                  .iter_device_batches([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     assert resolve_device("cpu") == torch.device("cpu")

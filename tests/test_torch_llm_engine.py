@@ -155,6 +155,83 @@ def test_engine_matches_jax_engine(family, num_pages):
     assert tstats["kv_pages_used"] == 0 and tstats["step_errors"] == 0
 
 
+def _llm_series(mod):
+    """The engine's and the pool's series: counters and gauges by value,
+    histograms by observation count (their values are wall-clock
+    gaps)."""
+    out = {}
+    for snap in mod.registry().snapshot():
+        if not snap["name"].startswith(("rt_llm_", "rt_serve_ttft")):
+            continue
+        for s in snap["series"]:
+            key = (snap["name"], tuple(sorted(s["tags"].items())))
+            out[key] = s["hist"]["count"] if "hist" in s else s["value"]
+    return out
+
+
+@pytest.mark.parametrize("num_pages", [64, 10])
+def test_engine_telemetry_matches_jax_engine(num_pages):
+    """The JAX engine and the port's on the same weights and requests,
+    each request carrying a request id: equal token, prefill and
+    eviction counters, TPOT and TTFT-phase observation counts, batch,
+    waiting and KV-page gauges; the same span names for each request id;
+    the same programs registered with xprof."""
+    from ray_tpu.util import metrics as jmetrics
+    from ray_tpu.util import spans as jspans
+    from ray_tpu.util import xprof as jxprof
+    from ray_tpu_torch.util import metrics, spans, xprof
+
+    for mod in (metrics, jmetrics):
+        mod.registry().clear()
+    for mod in (spans, jspans):
+        mod.reset()
+    xprof._reset_local()
+    jxprof._reset_local()
+    jcfg, params = _jax_params("gpt2")
+    ecfg = dict(page_size=4, num_pages=num_pages, max_batch=4,
+                prefill_token_budget=64)
+    engines = [
+        (GenerationEngine(model_cfg=CFG, engine_cfg=EngineConfig(**ecfg),
+                          params=_state_dict(params), device="cpu"),
+         SamplingParams),
+        (jengine.GenerationEngine(model_cfg=jcfg,
+                                  engine_cfg=jengine.EngineConfig(**ecfg),
+                                  params=params),
+         jsampling.SamplingParams)]
+    for eng, params_cls in engines:
+        seqs = [eng.submit(prompt, max_tokens=12, params=params_cls(**sp),
+                           seed=seed, request_id=f"r{i}")
+                for i, (prompt, sp, seed) in enumerate(_REQUESTS)]
+        for _ in range(400):
+            if all(q.finished for q in seqs):
+                break
+            eng.step()
+        assert all(q.finished for q in seqs)
+    got, want = _llm_series(metrics), _llm_series(jmetrics)
+    assert got == want
+    n = len(_REQUESTS)
+    assert got[("rt_llm_tokens_total", ())] == 12 * n
+    assert got[("rt_llm_tpot_seconds", ())] == 11 * n
+    assert got[("rt_llm_kv_pages_used", ())] == 0
+    assert got[("rt_llm_kv_pages_total", ())] == num_pages
+    assert got[("rt_serve_ttft_phase_seconds", (("phase", "prefill"),))] == n
+    assert (("rt_llm_evictions_total", ()) in got) == (num_pages == 10)
+
+    def names(mod):
+        by_rid = {}
+        for sp in mod.snapshot():
+            rid = (sp.get("tags") or {}).get("request_id")
+            if rid:
+                by_rid.setdefault(rid, set()).add(sp["name"])
+        return by_rid
+
+    assert names(spans) == names(jspans) == {
+        f"r{i}": {"engine_waiting", "prefill", "decode"} for i in range(n)}
+    assert set(xprof.local_programs()) == set(jxprof.local_programs())
+    assert "llm_decode" in xprof.local_programs()
+    assert xprof.local_programs()["llm_decode"]["flops"] > 0
+
+
 # ------------------------------- tests/test_llm_engine.py, on the port
 
 
@@ -345,6 +422,21 @@ def test_deployment_streams_frames(deployment):
     assert frames[-1] == {"done": True, "reason": "length", "n_tokens": 6}
     # The warmup request at init stays out of the TTFT accounting.
     assert dep.stats()["ttft_requests"] == 1
+
+
+def test_deployment_takes_the_request_id_from_tracing(deployment):
+    """A request made inside ``tracing.request_scope`` hands its id to
+    the engine: its lifecycle spans carry it."""
+    from ray_tpu_torch.util import spans, tracing
+
+    dep, _ = deployment
+    spans.reset()
+    with tracing.request_scope("req-7"):
+        frames = list(dep({"prompt": [5, 9, 101], "max_tokens": 4}))
+    assert frames[-1]["done"]
+    names = {sp["name"] for sp in spans.snapshot()
+             if (sp.get("tags") or {}).get("request_id") == "req-7"}
+    assert names == {"engine_waiting", "prefill", "decode"}
 
 
 def test_deployment_bad_request_yields_error_frame(deployment):
