@@ -91,16 +91,30 @@ The two bf16 phases print tokens/s, TTFT and TPOT percentiles, decode
 MFU, peak device memory, the engine's stats and one batch-8 decode
 forward's host time, CUDA-event time and kernel breakdown
 (``torch.profiler``); the float32 phase, too small a load for such
-numbers, prints its checks and the engine's stats.  Any
-failure exits non-zero; with no CUDA device it exits 1 before doing
-anything.
+numbers, prints its checks and the engine's stats.
+
+Last, ``[serve plane]`` serves the first phase's model, load and
+checks through the port's serve plane (``ray_tpu_torch.serve``):
+``serve.run(llm_deployment(..., num_gpus=1))`` on a cluster runtime,
+every request streamed through ``DeploymentHandle.stream``; then the
+stdlib HTTP ingress (frames equal the handle's, a client disconnect
+frees every page, the error frame, 404; gRPC where ``grpc`` imports),
+the cluster read back (``util.telemetry.cluster_summary`` counts the
+tokens and the ingress requests, ``util.xprof.cluster_report`` lists
+the engine's programs) and two ``num_gpus=0.5`` replicas on the card.
+It prints its serving numbers beside ``[serve] GPT-2 124M``'s of the
+same run (see ``serve_plane``).  The serving path launches no
+hand-written kernel.  Any failure exits non-zero; with no CUDA device
+it exits 1 before doing anything.
 
 Output, last lines: one JSON line ``{"kernels": [...]}`` with each
 kernel's launches on the main path, error against its plain version,
 times and bound; one JSON line ``{"telemetry": {...}}`` with
 ``[telemetry]``'s numbers; one JSON line ``{"serving": [...]}`` with
 each serve phase's numbers; one JSON line ``{"runtime": {...}}`` with
-``[runtime]``'s and ``[trainer]``'s; the card's name and power limit
+``[runtime]``'s and ``[trainer]``'s; one JSON line
+``{"serve_plane": {...}}`` with ``[serve plane]``'s; the card's name and
+power limit
 (``nvidia-smi``); and
 last ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
 device-time breakdown of two more training steps, unsharded and sharded
@@ -1968,15 +1982,12 @@ SERVE_ENGINE = dict(page_size=16, num_pages=256, max_batch=8,
                     prefill_token_budget=512)
 
 
-def serve_requests(dep, prompts, max_tokens: int, clients: int):
-    """``bench.py --serve-llm``'s client loop without the serve plane:
-    ``clients`` threads, each sending its share of ``prompts`` one after
-    another through ``LLMDeployment.__call__`` and reading every frame,
-    request i under the request id ``req-<i>`` (``tracing.request_scope``).
-    Returns each request's frames, TTFT and inter-token gaps (seconds,
-    host clock) and the wall time of the whole load."""
-    from ray_tpu_torch.util import tracing
-
+def serve_requests(send, prompts, max_tokens: int, clients: int):
+    """``bench.py --serve-llm``'s client loop: ``clients`` threads, each
+    sending its share of ``prompts`` one after another and reading every
+    frame of ``send(i, payload)`` for request i.  Returns each request's
+    frames, TTFT and inter-token gaps (seconds, host clock) and the wall
+    time of the whole load."""
     per = len(prompts) // clients
     results = [None] * len(prompts)
 
@@ -1984,12 +1995,11 @@ def serve_requests(dep, prompts, max_tokens: int, clients: int):
         for i in range(c * per, (c + 1) * per):
             t0 = time.perf_counter()
             frames, stamps = [], []
-            with tracing.request_scope(f"req-{i}"):
-                for fr in dep({"prompt": prompts[i],
+            for fr in send(i, {"prompt": prompts[i],
                                "max_tokens": max_tokens}):
-                    frames.append(fr)
-                    if "token" in fr:
-                        stamps.append(time.perf_counter())
+                frames.append(fr)
+                if "token" in fr:
+                    stamps.append(time.perf_counter())
             results[i] = {"frames": frames,
                           "ttft": stamps[0] - t0 if stamps else None,
                           "gaps": [b - a for a, b in zip(stamps, stamps[1:])]}
@@ -2043,6 +2053,7 @@ def serve_load(model_cfg, clients: int, per_client: int, prompt_len: int,
     import torch
 
     from ray_tpu_torch.llm import EngineConfig, LLMDeployment
+    from ray_tpu_torch.util import tracing
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, model_cfg.vocab_size, prompt_len).tolist()
@@ -2056,7 +2067,15 @@ def serve_load(model_cfg, clients: int, per_client: int, prompt_len: int,
         ready_s = time.perf_counter() - t0
         list(dep({"prompt": prompts[0], "max_tokens": 4, "warmup": True}))
         series_before = registry_series()
-        results, wall = serve_requests(dep, prompts, max_tokens, clients)
+
+        def in_process(i, payload):
+            # Without the serve plane: LLMDeployment.__call__ under the
+            # request id req-<i>.
+            with tracing.request_scope(f"req-{i}"):
+                yield from dep(payload)
+
+        results, wall = serve_requests(in_process, prompts, max_tokens,
+                                       clients)
         stats = dep.stats()
         series_after = registry_series()
     finally:
@@ -2092,14 +2111,17 @@ def load_numbers(model_cfg, load, card: str):
            "tokens_per_s": tok_s, "ttft_p50_ms": ttft[0],
            "ttft_p99_ms": ttft[1], "tpot_p50_ms": tpot[0],
            "tpot_p99_ms": tpot[1], "decode_mfu": mfu,
-           "peak_memory_gib": load["peak_memory_gib"],
            "ready_s": load["ready_s"], "engine_steps": load["stats"]["steps"],
            "evictions": load["stats"]["evictions"]}
+    peak = ""
+    if "peak_memory_gib" in load:    # the engine ran in this process
+        out["peak_memory_gib"] = load["peak_memory_gib"]
+        peak = f"; peak memory {out['peak_memory_gib']:.2f} GiB"
     print(f"  {n_tok} tokens in {load['wall']:.3f} s, {tok_s:.1f} tokens/s; "
           f"TTFT p50 {ttft[0]:.2f} ms p99 {ttft[1]:.2f} ms; TPOT p50 "
           f"{tpot[0]:.2f} ms p99 {tpot[1]:.2f} ms; decode MFU {mfu:.6f} of "
-          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 (card: {card}); peak "
-          f"memory {out['peak_memory_gib']:.2f} GiB")
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 (card: {card})"
+          + peak)
     return out
 
 
@@ -2376,6 +2398,321 @@ def serve_llama(card: str):
     return out
 
 
+def http_post(port: int, path: str, payload, close_after: int = 0):
+    """POST JSON to the serve plane's HTTP ingress over a raw socket;
+    returns (status, frames) for a streamed (chunked NDJSON) answer or
+    (status, body) for a plain one.  ``close_after``: close the socket
+    after that many token frames, the way a client that goes away does."""
+    import socket
+
+    body = json.dumps(payload).encode()
+    req = (f"POST {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+           f"Content-Type: application/json\r\n"
+           f"Content-Length: {len(body)}\r\n\r\n").encode() + body
+    with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+        s.sendall(req)
+        f = s.makefile("rb")
+        status = int(f.readline().split()[1])
+        headers = {}
+        while (line := f.readline().strip()):
+            k, _, v = line.decode().partition(":")
+            headers[k.lower()] = v.strip()
+        if "chunked" not in headers.get("transfer-encoding", ""):
+            return status, json.loads(f.read(int(headers["content-length"])))
+        frames = []
+        while (size := int(f.readline().strip(), 16)):
+            frames += [json.loads(ln) for ln in
+                       f.read(size).decode().splitlines()]
+            f.readline()
+            if close_after and sum("token" in fr for fr in frames) \
+                    >= close_after:
+                break
+    return status, frames
+
+
+def until(cond, timeout: float, what: str, every: float = 0.1):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(every)
+    raise RuntimeError(f"{what} (waited {timeout} s)")
+
+
+def stream_via(handle):
+    """``serve_requests``' sender through the serve plane: each request
+    streamed by ``DeploymentHandle.stream`` under a fresh request id."""
+    from ray_tpu_torch.util import tracing
+
+    return lambda i, payload: handle.stream(
+        payload, request_id=tracing.new_request_id())
+
+
+def replica_stats(rt, ctl, name: str):
+    """``stats()`` of every replica of a deployment, in replica order."""
+    reps = rt.get(ctl.get_replicas.remote(name), timeout=60)
+    return [rt.get(r.call_method.remote("stats", (), {}), timeout=600)
+            for r in reps]
+
+
+def replica_gpu_ids(rt, ctl, name: str):
+    """Each replica's GPU ids as its node agent leased them (the ids the
+    worker exported as ``CUDA_VISIBLE_DEVICES`` before CUDA started)."""
+    from ray_tpu_torch.util import state as rt_state
+
+    keys = {r.actor_id.hex()
+            for r in rt.get(ctl.get_replicas.remote(name), timeout=60)}
+    ids = []
+    for n in rt_state.list_nodes():
+        if not n["alive"]:
+            continue
+        workers = rt_state._agent_call(n["agent_addr"], "list_workers")
+        pids = {w["pid"] for w in workers.get("workers", [])
+                if w.get("actor_id") in keys}
+        leases = rt_state._agent_call(n["agent_addr"], "list_leases")
+        ids += [",".join(map(str, le["gpu_ids"]))
+                for le in leases["leases"] if le["worker_pid"] in pids]
+    return ids
+
+
+def serve_plane(card: str, in_process: dict):
+    """[serve plane] GPT-2 124M bf16 served through the port's serve
+    plane, ``bench.py --serve-llm``'s way: ``serve.run(llm_deployment(
+    ..., num_gpus=1), route_prefix="/llm")`` on a cluster runtime, the
+    same engine configuration, prompts and load as ``[serve] GPT-2
+    124M`` (8 clients x 4 requests, prompts 16, 32 greedy tokens), each
+    request streamed through ``DeploymentHandle.stream`` under its own
+    request id.  Fails unless every request ends "length" with 32
+    tokens, the greedy tokens pass ``check_logit_gaps``, every page is
+    free after the load and the controller replaced no replica.  Then
+    the stdlib HTTP ingress: two requests' NDJSON frames equal the
+    handle's for the same payloads, a client that closes its socket
+    after 4 token frames leaves every page free within 5 s, a bad
+    payload yields the error frame, an unknown route 404 (gRPC where
+    ``grpc`` imports).  Then the cluster read back while the replica is
+    up: ``cluster_summary``'s LLM tokens equal every token the clients
+    received (the engine's own 2-token warmup included), its serve
+    section counts the HTTP requests by status class, ``render_text``
+    renders it and ``cluster_report`` lists the engine's programs.
+    Last, two replicas on one card (``num_gpus=0.5``): both lease GPU
+    id 0, both step, every request of the same load completes.  Prints
+    tokens/s, TTFT/TPOT p50/p99 and decode MFU beside ``in_process``
+    (the same run's ``[serve] GPT-2 124M``), the replica start time and
+    the replicas' peak device memory."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import EngineConfig, llm_deployment
+    from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from ray_tpu_torch.util import telemetry, xprof
+
+    cfg = GPT2Config(**GPT2_124M, remat=False, attn_impl="dense")
+    clients, per_client, prompt_len, max_tokens = 8, 4, 16, 32
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len).tolist()
+               for _ in range(clients * per_client)]
+    out = {}
+    rt.init(mode="cluster", num_cpus=8)
+    try:
+        # 1. Start the plane and warm it: serve.run to the first frame.
+        t0 = time.perf_counter()
+        handle = serve.run(llm_deployment(
+            name="llm", model="gpt2", model_cfg=cfg,
+            engine_cfg=EngineConfig(**SERVE_ENGINE), num_gpus=1),
+            route_prefix="/llm")
+        warm = list(handle.stream({"prompt": prompts[0], "max_tokens": 4,
+                                   "warmup": True}))
+        out["replica_start_s"] = time.perf_counter() - t0
+        if sum("token" in fr for fr in warm) != 4:
+            raise RuntimeError(f"warmup request: {warm}")
+        ctl = rt.get_actor(serve.CONTROLLER_NAME)
+        print(f"  serve.run to the warmup request's last frame: "
+              f"{out['replica_start_s']:.3f} s (a GPU worker, the engine's "
+              f"build and warmup)")
+
+        # 2. bench.py --serve-llm's load through the handle.
+        results, wall = serve_requests(stream_via(handle), prompts,
+                                       max_tokens, clients)
+        tokens = check_requests(results, max_tokens)
+        (stats,) = replica_stats(rt, ctl, "llm")
+        if stats["step_errors"] != 0 or stats["kv_pages_used"] != 0:
+            raise RuntimeError(f"engine stats after the load: {stats}")
+        load = {"results": results, "wall": wall, "stats": stats,
+                "ready_s": out["replica_start_s"], "prompt_len": prompt_len,
+                "max_tokens": max_tokens}
+        print(f"  {len(results)} requests ({clients} clients x "
+              f"{per_client}) through DeploymentHandle.stream: every "
+              f"request ended \"length\" with {max_tokens} tokens, no error "
+              f"frame, no step error, every page free")
+        print(f"  engine stats: {json.dumps(stats)}")
+        numbers = load_numbers(cfg, load, card)
+        model = gpt2_init(cfg, torch.Generator(device="cuda").manual_seed(0))
+        numbers.update(check_logit_gaps(model, prompts, tokens))
+        del model
+        free_device_memory()
+        resil = rt.get(ctl.resilience_stats.remote(), timeout=60)["llm"]
+        if resil["replacements"]:
+            raise RuntimeError(f"replicas replaced: {resil}")
+        print(f"  replacement log after warm-up and load: "
+              f"{resil['replacements']} (replicas {resil['replicas']}/"
+              f"{resil['target']})")
+        received = 2 + 4 + len(tokens) * max_tokens   # engine warmup too
+        summary = until(
+            lambda: (s := telemetry.cluster_summary())["llm"]["tokens"]
+            == received and s, 60, f"cluster_summary's LLM tokens never "
+            f"reached the {received} the clients received", every=1.0)
+        print(f"  cluster_summary after the load: LLM tokens "
+              f"{summary['llm']['tokens']:.0f} = {received} received "
+              f"(2 engine warmup + 4 warmup request + "
+              f"{len(tokens)} x {max_tokens})")
+
+        # 3. The stdlib HTTP ingress.
+        port = serve.start_http_proxy()
+        until(lambda: http_post(port, "/llm", {"prompt": [1],
+                                               "max_tokens": 1})[0] == 200,
+              60, "the /llm route never reached the HTTP proxy", 0.2)
+        n_ingress = 1
+        for i in (0, len(prompts) - 1):
+            payload = {"prompt": prompts[i], "max_tokens": max_tokens}
+            status, frames = http_post(port, "/llm", payload)
+            n_ingress += 1
+            want = list(handle.stream(payload))
+            if status != 200 or frames != want:
+                raise RuntimeError(f"HTTP request {i}: {status} {frames} "
+                                   f"against the handle's {want}")
+        print("  HTTP: two requests' NDJSON frames equal the handle's for "
+              "the same payloads")
+        status, frames = http_post(port, "/llm", {
+            "prompt": prompts[1], "max_tokens": max_tokens}, close_after=4)
+        n_ingress += 1
+        t_close = time.perf_counter()
+        until(lambda: replica_stats(rt, ctl, "llm")[0]["kv_pages_used"] == 0,
+              5.0, "pages still held 5 s after the client went away")
+        out["disconnect_pages_free_s"] = time.perf_counter() - t_close
+        print(f"  a client closed its socket after "
+              f"{sum('token' in fr for fr in frames)} token frames: every "
+              f"page free {out['disconnect_pages_free_s']:.3f} s later")
+        status, frames = http_post(port, "/llm", {"prompt": "not tokens"})
+        n_ingress += 1
+        if status != 200 or len(frames) != 1 or \
+                not frames[0].get("error", "").startswith("bad request"):
+            raise RuntimeError(f"bad payload: {status} {frames}")
+        status, body = http_post(port, "/nope", {})
+        if status != 404:
+            raise RuntimeError(f"unknown route: {status} {body}")
+        print(f"  bad payload -> {frames}; unknown route -> {status}")
+        try:
+            import grpc
+        except ImportError:
+            print("  gRPC: grpcio is absent on this machine; the gRPC "
+                  "ingress is not run")
+        else:
+            gport = serve.start_grpc_proxy()
+            with grpc.insecure_channel(f"127.0.0.1:{gport}") as ch:
+                stream = ch.unary_stream(
+                    "/ray_tpu.serve.Ingress/CallStream",
+                    request_serializer=lambda b: b,
+                    response_deserializer=lambda b: b)
+                payload = {"prompt": prompts[0], "max_tokens": 8}
+                got = [json.loads(m) for m in stream(json.dumps(
+                    {"deployment": "llm", "payload": payload}).encode(),
+                    timeout=120)]
+            n_ingress += 1
+            if got != list(handle.stream(payload)):
+                raise RuntimeError(f"gRPC frames {got}")
+            print("  gRPC CallStream: frames equal the handle's")
+
+        # 5. The cluster read back (while the replica is up: a replica's
+        # series ship every metrics period and leave with it).
+        def http_counted():
+            s = telemetry.cluster_summary()
+            classes = s["serve"].get("status_classes", {}).get("llm", {})
+            return s if classes == {"2xx": n_ingress - 1, "4xx": 1} else None
+
+        summary = until(http_counted, 60, f"cluster_summary never counted "
+                        f"the {n_ingress} ingress requests to /llm", every=1.0)
+        reqs = summary["serve"]["requests"]["llm"]
+        if reqs["count"] != n_ingress:
+            raise RuntimeError(f"rt_serve_request_seconds {reqs}")
+        text = telemetry.render_text(summary)
+        if "LLM engine (continuous batching):" not in text \
+                or "Serve ingress:" not in text:
+            raise RuntimeError("render_text lacks a section:\n" + text)
+        report = xprof.cluster_report(summary=summary)
+        programs = sorted(report["programs"])
+        if "llm_decode" not in programs or not any(
+                p.startswith("llm_prefill[") for p in programs):
+            raise RuntimeError(f"cluster_report's programs {programs}")
+        devmem = summary["xla"]["device_memory"]
+        out["peak_memory_gib"] = max(
+            (d.get("peak", 0.0) for src in devmem.values()
+             for d in src.values()), default=0.0) / 2**30
+        print(f"  cluster_summary: /llm requests {reqs['count']} "
+              f"(rt_serve_request_seconds), status classes "
+              f"{summary['serve']['status_classes']['llm']}, TTFT series "
+              f"{summary['serve'].get('ttft', {}).get('llm', {})}; "
+              f"cluster_report programs {programs}; the replica's peak "
+              f"device memory {out['peak_memory_gib']:.3f} GiB")
+        for line in text.splitlines():
+            print("  | " + line)
+        serve.delete("llm")
+
+        # 4. Two replicas on one card.
+        t0 = time.perf_counter()
+        handle2 = serve.run(llm_deployment(
+            name="llm2", model="gpt2", model_cfg=cfg,
+            engine_cfg=EngineConfig(**SERVE_ENGINE), num_replicas=2,
+            num_gpus=0.5), route_prefix="/llm2")
+        handle2._ensure_fresh()
+        replica_stats(rt, ctl, "llm2")       # both engines built, warm
+        out["two_replicas_start_s"] = time.perf_counter() - t0
+        ids = replica_gpu_ids(rt, ctl, "llm2")
+        if ids != ["0", "0"]:
+            raise RuntimeError(f"the two replicas' GPU ids {ids}")
+        results2, wall2 = serve_requests(stream_via(handle2), prompts,
+                                         max_tokens, clients)
+        tokens2 = check_requests(results2, max_tokens)
+        stats2 = replica_stats(rt, ctl, "llm2")
+        if any(st["steps"] <= 0 or st["kv_pages_used"] != 0
+               or st["step_errors"] for st in stats2):
+            raise RuntimeError(f"two replicas' stats {stats2}")
+        resil = rt.get(ctl.resilience_stats.remote(), timeout=60)["llm2"]
+        if resil["replacements"]:
+            raise RuntimeError(f"replicas replaced: {resil}")
+        out["two_replicas"] = {
+            "gpu_ids": ids, "steps": [st["steps"] for st in stats2],
+            "tokens_per_s": len(tokens2) * max_tokens / wall2}
+        print(f"  two replicas (num_gpus=0.5) up in "
+              f"{out['two_replicas_start_s']:.3f} s, both on GPU id "
+              f"{ids}; the load: every request ended \"length\" with "
+              f"{max_tokens} tokens, engine steps "
+              f"{out['two_replicas']['steps']}, "
+              f"{out['two_replicas']['tokens_per_s']:.1f} tokens/s; "
+              f"replacements {resil['replacements']}")
+        serve.delete("llm2")
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+    for key in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+                "tpot_p99_ms", "decode_mfu"):
+        out[key] = numbers[key]
+        out[f"{key}_in_process"] = in_process[key]
+        out[f"{key}_ratio"] = numbers[key] / in_process[key]
+    out.update({k: numbers[k] for k in ("requests", "tokens", "engine_steps",
+                                        "max_logit_gap")})
+    print("  through the plane / in process ([serve] GPT-2 124M, this "
+          f"run; card: {card}):")
+    for key in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms",
+                "tpot_p99_ms", "decode_mfu"):
+        plane_v, local_v = out[key], out[key + "_in_process"]
+        print(f"    {key:<12} {plane_v:12.6f} / {local_v:12.6f} = "
+              f"{out[key + '_ratio']:.4f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2476,6 +2813,12 @@ def main() -> int:
         serving.append({"phase": name, **phase(card)})
         free_device_memory()
 
+    print("[serve plane] GPT-2 124M bf16 through serve.run(llm_deployment("
+          "num_gpus=1)): the handle, the stdlib HTTP ingress, the cluster "
+          "read back, two replicas on one card")
+    plane = serve_plane(card, serving[0])
+    free_device_memory()
+
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **results[name])
@@ -2484,6 +2827,7 @@ def main() -> int:
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"runtime": runtime}))
+    print(json.dumps({"serve_plane": plane}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

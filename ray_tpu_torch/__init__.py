@@ -38,7 +38,7 @@ from .core.object_ref import ObjectRef  # noqa: F401
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("collective", "device", "dryrun", "llm", "models",
-                    "ops", "parallel", "train", "util")
+                    "ops", "parallel", "serve", "train", "util")
 
 
 def __getattr__(name: str):

@@ -63,24 +63,9 @@ class Cluster:
         interruption flag and checkpoint-on-notice), then after
         ``grace_s`` the agent AND its workers are SIGKILLed like the
         VM vanishing.  Blocks for the grace window."""
-        import os
-        import signal
+        from .testing.chaos import preempt_node_processes
 
-        worker_pids = _agent_worker_pids(node.agent_addr)
-        try:
-            node.proc.terminate()  # the notice
-        except (ProcessLookupError, PermissionError):
-            pass
-        time.sleep(grace_s)
-        for pid in [node.proc.pid] + worker_pids:
-            try:
-                os.kill(pid, signal.SIGKILL)  # the VM dies
-            except (ProcessLookupError, PermissionError):
-                pass
-        try:
-            node.proc.wait(timeout=5)
-        except subprocess.TimeoutExpired:
-            pass
+        preempt_node_processes(node, grace_s)
         try:
             self.nodes.remove(node)
         except ValueError:
@@ -153,25 +138,3 @@ class Cluster:
                         pass
         except OSError:
             pass
-
-
-def _agent_worker_pids(agent_addr: str) -> List[int]:
-    """Worker pids of a (single-machine test) node agent, via its
-    list_workers RPC — the processes a real VM death would take out
-    along with the agent (``ray_tpu/testing/chaos.py``)."""
-    import asyncio
-
-    from .core.rpc import RpcClient
-
-    async def _go():
-        cli = RpcClient(agent_addr, connect_timeout=5.0)
-        try:
-            r = await cli.call("list_workers", {})
-            return [w["pid"] for w in r.get("workers", [])]
-        finally:
-            await cli.close()
-
-    try:
-        return asyncio.run(_go())
-    except Exception:
-        return []

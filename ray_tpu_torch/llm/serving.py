@@ -9,10 +9,12 @@ mid-generation runs the generator's ``finally``, which cancels the
 sequence and frees its KV pages.
 
 Each request runs under the request id of the caller's tracing context
-(``util.tracing.request_scope``), so the engine records its
-waiting/prefill/decode spans under it.  ``llm_deployment`` builds a
-serve application in the JAX package; the port has no serve plane yet,
-so it raises.
+(``util.tracing.request_scope``; the serve plane opens one for every
+request it routes), so the engine records its waiting/prefill/decode
+spans under it.  ``llm_deployment`` builds the serve application: its
+replicas lease a GPU (``num_gpus``, default 1) where the JAX package's
+lease CPUs and see the TPU anyway, since the port's runtime gives a
+CPU-only lease an empty ``CUDA_VISIBLE_DEVICES``.
 """
 
 from __future__ import annotations
@@ -115,7 +117,37 @@ class LLMDeployment:
             self._engine.stop()
 
 
-def llm_deployment(*args, **kwargs):
-    raise NotImplementedError(
-        "llm_deployment builds a serve application; it arrives with the "
-        "serve-plane slice of the port (LLMDeployment runs without it)")
+def llm_deployment(name: str = "llm", model: str = "gpt2",
+                   model_cfg: Any = None,
+                   engine_cfg: Optional[EngineConfig] = None,
+                   num_replicas: int = 1,
+                   autoscaling: Any = None,
+                   max_ongoing_requests: Optional[int] = None,
+                   num_cpus: float = 1, num_gpus: float = 1,
+                   seed: int = 0, warmup: bool = True,
+                   route_prefix: Optional[str] = None, device=None):
+    """Build the serve Application for an LLM deployment.
+
+    Each replica leases ``num_gpus`` (0.5 puts two replicas on one
+    card) and builds its engine on ``device`` (None: the card its lease
+    exposes; the CPU tests pass ``num_gpus=0, device="cpu"``).
+    ``autoscaling`` takes a serve.AutoscalingConfig: replica count then
+    follows engine load — streams in flight plus handle queue depth —
+    through the existing request autoscaler.  ``max_ongoing_requests``
+    defaults to the engine's max_batch so admission control saturates
+    exactly when the continuous batch does.
+    """
+    from .. import serve
+
+    engine_cfg = engine_cfg or EngineConfig()
+    if max_ongoing_requests is None:
+        max_ongoing_requests = engine_cfg.max_batch
+    dep = serve.deployment(
+        LLMDeployment, name=name, num_replicas=num_replicas,
+        ray_actor_options={"num_cpus": num_cpus, "num_gpus": num_gpus},
+        autoscaling_config=autoscaling,
+        route_prefix=route_prefix,
+        max_ongoing_requests=max_ongoing_requests)
+    return dep.bind(model=model, model_cfg=model_cfg,
+                    engine_cfg=engine_cfg, seed=seed, warmup=warmup,
+                    device=device)

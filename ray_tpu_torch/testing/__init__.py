@@ -1,9 +1,17 @@
-"""Worker functions the CPU parity tests run in spawned ranks
-(``dryrun.spawn``).  They live in the package so that a child process
-imports only the port; each joins its gang, runs its cases and returns
-numpy arrays for the parent to hold against the JAX package."""
+"""ray_tpu_torch.testing — helpers for tests.
+
+The chaos killers of ``chaos.py`` (the JAX package's
+``ray_tpu.testing``), and the worker functions the CPU parity tests run
+in spawned ranks (``dryrun.spawn``).  Those live in the package so that
+a child process imports only the port; each joins its gang, runs its
+cases and returns numpy arrays for the parent to hold against the JAX
+package."""
 
 from __future__ import annotations
+
+from .chaos import (NodeKiller, PreemptionKiller,  # noqa: F401
+                    ReplicaKiller, TornWriteInjector, WorkerKiller,
+                    preempt_node_processes)
 
 
 def _np(x):
@@ -15,8 +23,8 @@ def collective_cases(rank: int, world: int, rendezvous: str):
     name joined again after destroy; {case: numpy result}."""
     import torch
 
-    from . import collective as col
-    from .dryrun import join
+    from .. import collective as col
+    from ..dryrun import join
 
     out = {}
     join(rank, world, rendezvous, group_name="ops")
@@ -93,10 +101,10 @@ def attention_cases(rank: int, world: int, rendezvous: str, cases):
     sum(out ** 2) for q, k, v."""
     import torch
 
-    from . import collective as col
-    from .dryrun import join
-    from .parallel.ring_attention import ring_attention
-    from .parallel.ulysses import ulysses_attention
+    from .. import collective as col
+    from ..dryrun import join
+    from ..parallel.ring_attention import ring_attention
+    from ..parallel.ulysses import ulysses_attention
 
     group = join(rank, world, rendezvous)
     out = {}
@@ -129,12 +137,12 @@ def sharded_step_cases(rank: int, world: int, rendezvous: str, cases):
     placements by rules)}."""
     import torch
 
-    from . import collective as col
-    from .dryrun import join, sharded_steps
-    from .models import gpt2, llama
-    from .parallel.mesh import MeshSpec, create_mesh
-    from .parallel.sharding import distribute, logical_sharding
-    from .train import distributed, train_step
+    from .. import collective as col
+    from ..dryrun import join, sharded_steps
+    from ..models import gpt2, llama
+    from ..parallel.mesh import MeshSpec, create_mesh
+    from ..parallel.sharding import distribute, logical_sharding
+    from ..train import distributed, train_step
 
     join(rank, world, rendezvous)
     out = {}
@@ -179,11 +187,11 @@ def moe_step_cases(rank: int, world: int, rendezvous: str, cases):
     params, mesh axes, token batches) of a GPT-2 MoE config, and each
     expert weight's placements.  Returns {name: (metrics, final params,
     {parameter: placements})}."""
-    from . import collective as col
-    from .dryrun import join, sharded_steps
-    from .models import gpt2
-    from .parallel.mesh import MeshSpec, create_mesh
-    from .train import train_step
+    from .. import collective as col
+    from ..dryrun import join, sharded_steps
+    from ..models import gpt2
+    from ..parallel.mesh import MeshSpec, create_mesh
+    from ..train import train_step
 
     join(rank, world, rendezvous)
     out = {}
@@ -214,9 +222,9 @@ def pipeline_cases(rank: int, world: int, rendezvous: str, cases):
     whether a batch that does not divide by the microbatches raises."""
     import torch
 
-    from . import collective as col
-    from .dryrun import join
-    from .parallel.pipeline import pipeline_apply
+    from .. import collective as col
+    from ..dryrun import join
+    from ..parallel.pipeline import pipeline_apply
 
     group = join(rank, world, rendezvous)
     out = {}
@@ -260,13 +268,13 @@ def checkpoint_cases(rank: int, world: int, rendezvous: str, jax_dir: str,
 
     import torch
 
-    from . import collective as col
-    from .dryrun import join
-    from .models import convert, gpt2
-    from .parallel.mesh import MeshSpec, create_mesh
-    from .parallel.sharding import PartitionSpec, distribute, spec_placements
-    from .train import distributed, train_step
-    from .train.sharded_checkpoint import load_sharded, save_sharded
+    from .. import collective as col
+    from ..dryrun import join
+    from ..models import convert, gpt2
+    from ..parallel.mesh import MeshSpec, create_mesh
+    from ..parallel.sharding import PartitionSpec, distribute, spec_placements
+    from ..train import distributed, train_step
+    from ..train.sharded_checkpoint import load_sharded, save_sharded
 
     group = join(rank, world, rendezvous)
     try:
@@ -326,10 +334,10 @@ def harvest_case(rank: int, world: int, rendezvous: str, cfg, axes,
     """One sharded step (``dryrun.sharded_steps``, telemetry on) on the
     mesh ``axes``; returns the program ``train_step`` the step
     registered with xprof and the names of the registry's series."""
-    from . import collective as col
-    from .dryrun import join, sharded_steps
-    from .util import xprof
-    from .util.metrics import registry
+    from .. import collective as col
+    from ..dryrun import join, sharded_steps
+    from ..util import xprof
+    from ..util.metrics import registry
 
     join(rank, world, rendezvous)
     try:

@@ -1,9 +1,11 @@
 """Cluster state API: the part of ``ray_tpu/util/state.py`` the port has
-so far, from a connected driver.
+so far, from a connected driver or by controller address.
 
-``list_nodes``, ``list_leases`` and ``torch_profile`` (the counterpart
+``list_nodes``, ``list_leases``, ``torch_profile`` (the counterpart
 of ``jax_profile``: an on-demand ``torch.profiler`` capture on every
-live worker).  The rest of the state API (tasks, actors, objects, logs,
+live worker), and the read side of the telemetry plane: ``telemetry``,
+``metrics_history``, ``serve_resilience``, ``load_metrics`` and
+``perf``.  The rest of the state API (tasks, actors, objects, logs,
 timelines) and its ``rt`` CLI are not ported yet (ROADMAP Queue 1 item
 5, "doctor, state and the rt CLI").
 """
@@ -11,17 +13,38 @@ timelines) and its ``rt`` CLI are not ported yet (ROADMAP Queue 1 item
 from __future__ import annotations
 
 import asyncio
+import json
 from typing import Any, Dict, List, Optional
 
 
-def _call(method: str, payload: Optional[Dict] = None) -> Any:
+def _call(method: str, payload: Optional[Dict] = None,
+          address: Optional[str] = None) -> Any:
+    """One controller RPC: over the connected runtime's channel, or to
+    the controller at ``address`` (``host:port``)."""
     from ..core import runtime as runtime_mod
 
-    rt = runtime_mod.get_runtime()
-    if not hasattr(rt, "controller_call"):
-        raise RuntimeError("the cluster state needs the cluster runtime "
-                           "(init(mode='cluster'))")
-    return rt.controller_call(method, payload or {})
+    if address is None:
+        rt = runtime_mod.get_runtime_quiet()
+        if rt is None or not hasattr(rt, "controller_call"):
+            raise ConnectionError(
+                "No cluster: call ray_tpu_torch.init(mode='cluster') "
+                "first or pass address=.")
+        return rt.controller_call(method, payload or {})
+    if address == "auto":
+        raise NotImplementedError(
+            "address='auto' reads the rt CLI's cluster record, not ported "
+            "yet (ROADMAP Queue 1 item 5: 'doctor, state and the rt "
+            "CLI'); pass the controller's host:port")
+    from ..core.rpc import RpcClient
+
+    async def _go():
+        cli = RpcClient(address, connect_timeout=10.0)
+        try:
+            return await cli.call(method, payload or {})
+        finally:
+            await cli.close()
+
+    return asyncio.run(_go())
 
 
 def list_nodes() -> List[Dict]:
@@ -105,3 +128,53 @@ def torch_profile(*, duration_s: float = 3.0,
         for rows in ex.map(_one, nodes):
             out.extend(rows)
     return out
+
+
+def metrics_history(*, source: Optional[str] = None,
+                    address: Optional[str] = None) -> Dict[str, Any]:
+    """Per-node metric time series: {source: [[ts, {metric: value}],
+    ...]} over the controller's retained window."""
+    return _call("metrics_history", {"source": source}, address)
+
+
+def telemetry(*, address: Optional[str] = None) -> Dict[str, Any]:
+    """Raw telemetry feed: latest per-source metric snapshots + retained
+    flight-recorder dumps.  ``util.telemetry.cluster_summary`` is the
+    aggregated operator view."""
+    return _call("telemetry", {}, address)
+
+
+def load_metrics(*, address: Optional[str] = None) -> Dict[str, Any]:
+    """The autoscaler's input view: per-node utilization/idle age +
+    the cluster demand vector."""
+    return _call("get_load_metrics", {}, address)
+
+
+def serve_resilience(*, address: Optional[str] = None
+                     ) -> Dict[str, Any]:
+    """The serve resilience plane's published stats (replica
+    replacement log, reported breaker states, admission-queue depth
+    per deployment), mirrored by the serve controller into the
+    cluster KV so readers get it over the plain controller RPC.  Empty
+    dict when serve is not running."""
+    try:
+        raw = _call("kv_get", {"key": "serve/resilience"}, address)
+    except Exception:
+        return {}
+    if not raw:
+        return {}
+    try:
+        if isinstance(raw, (bytes, bytearray)):
+            raw = raw.decode()
+        return json.loads(raw)
+    except Exception:
+        return {}
+
+
+def perf(*, address: Optional[str] = None) -> Dict[str, Any]:
+    """The performance introspection report: roofline position, step
+    decomposition, per-axis collective shares, compile events,
+    device-memory watermarks; see util/xprof.py."""
+    from . import xprof as xprof_mod
+
+    return xprof_mod.cluster_report(address=address)

@@ -40,8 +40,9 @@ the JAX package's, so the same readers read them; on the port they
 describe the torch step.  The pure layer (peak tables, ``roofline``,
 ``attribute_axes``, ``collective_wire_bytes``, ``summarize_collectives``,
 ``build_report``, ``render_report``) is a copy of the JAX module's.  The
-HLO parsers are not: the port has no HLO.  ``cluster_report`` (over the
-runtime controller's summary) is not ported yet and raises.
+HLO parsers are not: the port has no HLO.  ``cluster_report`` builds
+the report over the programs every process of a cluster registered
+(``util.telemetry.cluster_summary``).
 """
 
 from __future__ import annotations
@@ -859,10 +860,44 @@ def measure_step_decomposition(loss_fn, optimizer, state, batch, *,
 def cluster_report(*, address: Optional[str] = None,
                    summary: Optional[Dict[str, Any]] = None
                    ) -> Dict[str, Any]:
-    """The cluster-wide report merges every process's registered
-    programs from the runtime controller's telemetry summary; not ported
-    yet.  In one process: ``build_report(local_programs(), measured)``."""
-    raise NotImplementedError(
-        "cluster_report (over the runtime controller's telemetry "
-        "summary) is not ported yet: ROADMAP Queue 1 item 5, "
-        "'cluster_summary and cluster_report'")
+    """Assemble the cluster-wide perf report from the telemetry
+    summary's ``xla`` section (every process's registered programs,
+    shipped with its metric snapshots) plus the measured train/LLM step
+    times (the goodput cadence + the step-time histograms)."""
+    if summary is None:
+        from .telemetry import cluster_summary
+
+        summary = cluster_summary(address=address)
+    xla = summary.get("xla") or {}
+    programs = xla.get("programs") or {}
+
+    # Measured step time: merge the per-source step-time histograms
+    # (sum/count across sources); achieved FLOP/s prefers the
+    # session's declared-figure gauge.
+    measured: Dict[str, Dict[str, float]] = {}
+    tot_sum, tot_count, achieved = 0.0, 0, 0.0
+    for row in (summary.get("train") or {}).values():
+        st = row.get("rt_train_step_time_seconds")
+        if isinstance(st, dict):
+            tot_sum += st.get("sum", 0.0)
+            tot_count += st.get("count", 0)
+        achieved = max(achieved,
+                       row.get("rt_train_achieved_flops_per_sec",
+                               0.0))
+    if tot_count:
+        m: Dict[str, float] = {"step_time_s": tot_sum / tot_count}
+        if achieved:
+            m["achieved_flops_per_sec"] = achieved
+        for name in programs:
+            if name.startswith("train"):
+                measured[name] = m
+    tpot = (summary.get("llm") or {}).get("tpot")
+    if isinstance(tpot, dict) and tpot.get("count"):
+        for name in programs:
+            if name.startswith("llm_decode"):
+                measured[name] = {"step_time_s": tpot["mean"]}
+
+    report = build_report(programs, measured)
+    report["device_memory"] = xla.get("device_memory") or {}
+    report["goodput"] = summary.get("goodput") or {}
+    return report

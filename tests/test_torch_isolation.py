@@ -6,10 +6,13 @@ numpy, never ``jax``/``flax``/``optax`` nor ``ray_tpu`` (a name that ``ray_tpu_t
 check matches whole dotted prefixes), nor ``msgpack`` (the card machine
 lacks it; the port keeps its own codec for flax's layout), nor a
 top-level ``cloudpickle`` (the card machine lacks it too; the port
-imports its vendored copy as ``ray_tpu_torch._vendor.cloudpickle``).
-The runtime's control-plane modules (controller, node agent, worker
-entry) import no torch either.  Entry points called without a device
-run on CUDA or raise.
+imports its vendored copy as ``ray_tpu_torch._vendor.cloudpickle``),
+nor ``aiohttp`` (the port's HTTP ingress is written over ``asyncio``
+streams; the card machine has no aiohttp).  ``grpc`` is imported by the
+gRPC ingress alone, when it starts.  The runtime's control-plane
+modules (controller, node agent, worker entry) and the serve plane but
+its LLM binding import no torch either.  Entry points called without a
+device run on CUDA or raise.
 """
 
 import ast
@@ -25,7 +28,15 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "ray_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu", "msgpack",
-             "cloudpickle")
+             "cloudpickle", "aiohttp")
+# The serve plane's modules (the gRPC ingress imports grpc only inside
+# its actor, through ``grpc_proxy.import_grpc``).
+SERVE_MODULES = ("serve/__init__.py", "serve/deployment.py",
+                 "serve/routes.py", "serve/resilience.py",
+                 "serve/controller.py", "serve/proxy.py",
+                 "serve/grpc_proxy.py", "testing/__init__.py",
+                 "testing/chaos.py", "util/slo.py", "util/telemetry.py",
+                 "util/state.py", "util/xprof.py", "llm/serving.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -51,7 +62,9 @@ def test_forbidden_matches_whole_prefixes():
 @pytest.mark.parametrize("target", ["ray_tpu_torch", "chip_smoke.py",
                                     "tools/telemetry_spread.py",
                                     "tools/nccl_check_spread.py",
-                                    "tests/test_torch_cuda.py"])
+                                    "tests/test_torch_cuda.py",
+                                    *(f"ray_tpu_torch/{m}"
+                                      for m in SERVE_MODULES)])
 def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
         else [ROOT / target]
@@ -59,6 +72,12 @@ def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if _forbidden(m)]
     assert bad == []
+    # Inside the package only the gRPC ingress imports grpc (the card
+    # script is its client where grpcio is installed).
+    grpc = [str(f.relative_to(ROOT)) for f in files
+            if f.is_relative_to(PKG)
+            for m in _imports(f) if m == "grpc" or m.startswith("grpc.")]
+    assert set(grpc) <= {"ray_tpu_torch/serve/grpc_proxy.py"}
 
 
 def test_import_adds_no_jax_or_ray_tpu_module():
@@ -108,9 +127,15 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.train.trainer, ray_tpu_torch.train.v2\n"
         "import ray_tpu_torch.train.backend\n"
         "import ray_tpu_torch.train.worker_group\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.deployment\n"
+        "import ray_tpu_torch.serve.routes, ray_tpu_torch.serve.resilience\n"
+        "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.proxy\n"
+        "import ray_tpu_torch.serve.grpc_proxy\n"
+        "import ray_tpu_torch.testing.chaos, ray_tpu_torch.util.slo\n"
         "from ray_tpu_torch.core import serialization\n"
         "serialization.dumps(lambda: 1)\n"
-        "print(sorted(bad() - before))\n")
+        "grpc = [m for m in sys.modules if m.split('.')[0] == 'grpc']\n"
+        "print(sorted(bad() - before) + grpc)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
@@ -128,7 +153,7 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "parallel/mesh.py", "parallel/sharding.py",
                    "parallel/partition_rules.py",
                    "parallel/ring_attention.py", "parallel/ulysses.py",
-                   "train/distributed.py", "dryrun.py", "testing.py",
+                   "train/distributed.py", "dryrun.py",
                    "ops/moe.py", "parallel/pipeline.py",
                    "parallel/grad_collectives.py", "util/checkpoint_fs.py",
                    "util/flax_msgpack.py", "train/sharded_checkpoint.py",
@@ -145,14 +170,17 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "cluster_utils.py", "util/placement_group.py",
                    "util/state.py", "train/trainer.py",
                    "train/backend.py", "train/worker_group.py",
-                   "train/v2.py", "_vendor/cloudpickle/cloudpickle.py"):
+                   "train/v2.py", "_vendor/cloudpickle/cloudpickle.py",
+                   *SERVE_MODULES):
         assert module in files
 
 
 def test_control_plane_imports_no_torch():
-    """The controller, the node agent and a worker before user code
-    runs never import torch (nor jax), as the JAX runtime's never
-    import jax: checked as a delta in a fresh interpreter."""
+    """The controller, the node agent, a worker before user code runs
+    and the serve plane (controller, replicas' wrapper, router,
+    ingresses; not its LLM binding) never import torch (nor jax), as
+    the JAX runtime's never import jax: checked as a delta in a fresh
+    interpreter."""
     code = ("import sys\n"
             "before = set(sys.modules)\n"
             "import ray_tpu_torch\n"
@@ -161,6 +189,12 @@ def test_control_plane_imports_no_torch():
             "import ray_tpu_torch.core.node_launcher\n"
             "import ray_tpu_torch.core.worker_main\n"
             "import ray_tpu_torch.core.cluster_runtime\n"
+            "import ray_tpu_torch.serve, ray_tpu_torch.serve.controller\n"
+            "import ray_tpu_torch.serve.deployment\n"
+            "import ray_tpu_torch.serve.routes\n"
+            "import ray_tpu_torch.serve.resilience\n"
+            "import ray_tpu_torch.serve.proxy\n"
+            "import ray_tpu_torch.serve.grpc_proxy\n"
             "from ray_tpu_torch.core import resources, serialization\n"
             "resources.node_resources()\n"
             "serialization.unpack(serialization.pack({'a': [1, 2]}))\n"

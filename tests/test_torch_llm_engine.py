@@ -472,6 +472,14 @@ def test_deployment_reports_init_failure():
 
 
 def test_llm_deployment_waits_for_the_serve_plane():
-    with pytest.raises(NotImplementedError, match="serve-plane slice"):
-        llm_deployment(name="llm")
+    """The serve plane has come: ``llm_deployment`` builds a serve
+    application of ``LLMDeployment`` whose replicas lease a GPU
+    (``tests/test_torch_llm_serve.py`` serves one)."""
+    from ray_tpu_torch import serve
+
+    app = llm_deployment(name="llm")
+    assert isinstance(app, serve.Application)
+    assert app.deployment.func_or_class is LLMDeployment
+    assert app.deployment.ray_actor_options == {"num_cpus": 1,
+                                                "num_gpus": 1}
     assert tengine.EngineConfig() == EngineConfig()

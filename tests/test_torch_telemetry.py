@@ -198,8 +198,283 @@ def test_histogram_quantiles_match_jax(buckets, count, q):
 
 
 def test_cluster_summary_waits_for_the_runtime():
-    with pytest.raises(NotImplementedError, match="runtime"):
+    """Without a runtime (and no address) there is no controller to read:
+    a ConnectionError, as the JAX package raises when it finds no
+    cluster."""
+    from ray_tpu_torch.core import runtime as runtime_mod
+
+    assert runtime_mod.get_runtime_quiet() is None
+    with pytest.raises(ConnectionError, match="No cluster"):
         telemetry.cluster_summary()
+
+
+# ------------------------------------------------ cluster summary (read)
+def _recorded_sources(mod):
+    """Two sources' snapshots, recorded through ``mod``'s registry, that
+    reach every section of the summary: goodput (with a job), train
+    gauges and histograms (sharded and blob checkpoints), collectives,
+    serve ingress, TTFT and its phases, resilience counters and breaker
+    gauges, the LLM engine, the object store, the worker pool and the
+    xla programs and device memory."""
+    reg = mod.registry()
+    out = {}
+    for src, k in (("node:a", 1.0), ("worker:b", 2.0)):
+        reg.clear()
+
+        def g(name, value, **tags):
+            mod.Gauge(name, "", tag_keys=tuple(tags)).set(value, tags=tags)
+
+        def c(name, value, **tags):
+            mod.Counter(name, "", tag_keys=tuple(tags)).inc(value,
+                                                            tags=tags)
+
+        def h(name, values, **tags):
+            hist = mod.Histogram(name, "", tag_keys=tuple(tags))
+            for v in values:
+                hist.observe(v, tags=tags)
+
+        for phase, sec in (("compute", 40.0), ("compile", 3.0),
+                           ("data_stall", 1.5), ("checkpoint", 2.0)):
+            g("rt_goodput_seconds", sec * k, phase=phase, job="job-7")
+        for name, value in (("rt_train_step", 10 * k),
+                            ("rt_train_tokens_per_sec", 1.2e5 * k),
+                            ("rt_train_mfu", 0.11 * k),
+                            ("rt_train_compile_seconds", 2.5),
+                            ("rt_train_achieved_flops_per_sec", 1e14 * k),
+                            ("rt_train_workers", 2)):
+            g(name, value)
+        h("rt_train_step_time_seconds", [0.13, 0.14 * k, 0.15])
+        h("rt_train_data_wait_seconds", [0.001, 0.002 * k])
+        h("rt_train_checkpoint_save_seconds", [1.2 * k], sharded="1")
+        h("rt_train_checkpoint_save_seconds", [0.3], sharded="0")
+        h("rt_train_checkpoint_restore_seconds", [0.9], sharded="1")
+        c("rt_checkpoint_bytes", 1.5e9 * k)
+        c("rt_checkpoint_shards", 4)
+        h("rt_collective_latency_seconds", [0.0002, 0.0003 * k],
+          op="allreduce", backend="nccl", world="4")
+        g("rt_collective_bus_bandwidth_bytes_per_sec", 2e11 * k,
+          op="allreduce", backend="nccl", world="4")
+        for cls, n in (("2xx", 30 * k), ("4xx", 2), ("5xx", 1 * k),
+                       ("shed", 3), ("deadline", 1)):
+            c("rt_serve_requests_total", n, deployment="llm",
+              status_class=cls)
+            h("rt_serve_request_seconds", [0.05 * k, 0.2] * int(n),
+              deployment="llm", outcome="ok", status_class=cls)
+        h("rt_serve_ttft_seconds", [0.02, 0.04 * k, 0.3],
+          deployment="llm")
+        for phase in ("proxy", "admission_queue", "engine_waiting",
+                      "prefill"):
+            h("rt_serve_ttft_phase_seconds", [0.001 * k, 0.01],
+              phase=phase)
+        g("rt_serve_inflight", 3 * k)
+        c("rt_serve_retries_total", 2 * k, deployment="llm")
+        c("rt_serve_shed_total", 3, deployment="llm")
+        c("rt_serve_deadline_exceeded_total", 1, deployment="llm")
+        g("rt_serve_queue_depth", 4 * k, deployment="llm")
+        g("rt_serve_breaker_open", 1.0 if k > 1 else 0.0,
+          deployment="llm", replica="abcdef123456")
+        for name, value in (("rt_llm_kv_pages_used", 12 * k),
+                            ("rt_llm_kv_pages_total", 256),
+                            ("rt_llm_batch_size", 8),
+                            ("rt_llm_waiting", 2 * k)):
+            g(name, value)
+        for name, value in (("rt_llm_tokens_total", 1024 * k),
+                            ("rt_llm_prefill_tokens_total", 512 * k),
+                            ("rt_llm_evictions_total", k)):
+            c(name, value)
+        h("rt_llm_tpot_seconds", [0.018, 0.021 * k])
+        g("rt_object_spilled_bytes", 1e6 * k)
+        c("rt_object_spill_total", 3 * k)
+        c("rt_object_restore_total", 1)
+        g("rt_worker_pool_idle", 4 * k)
+        g("rt_worker_pool_target", 8)
+        c("rt_worker_adoptions_total", 5 * k)
+        c("rt_worker_cold_spawn_total", 2)
+        c("rt_task_events_dropped_total", k - 1)
+        for phase in ("spawn", "import", "connect", "adopt"):
+            h("rt_worker_startup_seconds", [0.5 * k, 0.02], phase=phase)
+        for fn, flops in (("train_step", 1.7e13), ("llm_decode", 2.1e9),
+                          ("llm_prefill[16]", 3.4e10)):
+            g("rt_xla_cost_flops", flops * k, fn=fn)
+            g("rt_xla_cost_bytes", flops / 70, fn=fn)
+            g("rt_xla_memory_bytes", 4.4e9 / k, fn=fn, kind="temp")
+            g("rt_xla_collective_bytes", 3e8 * k, fn=fn, axis="data",
+              op="all-reduce")
+            c("rt_xla_compiles_total", 1, fn=fn)
+            c("rt_xla_compile_seconds_total", 0.8 * k, fn=fn)
+        for kind, value in (("used", 5e9 * k), ("peak", 9e9), ("limit",
+                                                              8e10)):
+            g("rt_xla_device_memory_bytes", value, device="0", kind=kind)
+        out[src] = json.loads(json.dumps(reg.snapshot()))
+    reg.clear()
+    return out
+
+
+def _recorded_history():
+    """The controller's flattened history: cumulative status-class
+    counters of two proxies (a burst of errors in the last minutes) and
+    train gauges."""
+    out = {}
+    for src, k in (("node:a", 1), ("node:b", 3)):
+        rows, ok, bad = [], 0.0, 0.0
+        for i in range(40):
+            ts = 1000.0 + 60.0 * i
+            ok += 50 * k
+            bad += (20 if i >= 34 else 0) * k
+            rows.append([ts, {
+                "rt_serve_requests_total{deployment=llm,"
+                "status_class=2xx}": ok,
+                "rt_serve_requests_total{deployment=llm,"
+                "status_class=5xx}": bad,
+                "rt_serve_requests_total{deployment=echo,"
+                "status_class=2xx}": ok / 2,
+                "rt_train_step": float(i), "rt_goodput_seconds{phase="
+                "compute}": 10.0 * i, "rt_object_spill_total": 1.0}])
+        out[src] = rows
+    return out
+
+
+_RESILIENCE = {"ts": 3300.0, "deployments": {"llm": {
+    "replicas": 2, "target": 2, "draining": 0,
+    "replacements": [{"index": 1, "ts": 3000.0, "reason": "health_probe"}],
+    "breakers": {"abcdef1234567890": {"state": "open", "ts": 3200.0,
+                                      "reporter": "1f.2"}},
+    "queue_depth": 4}}}
+
+_SLO_CONFIG = json.dumps({
+    "llm": {"availability": 0.999, "ttft_p99_ms": 100,
+            "latency_p99_ms": 500, "window_s": 3600},
+    "default": {"availability": 0.99}})
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Both packages' state readers answer with the same recorded
+    payloads; the SLO objectives come from ``RT_SLO_CONFIG``."""
+    from ray_tpu.util import state as jax_state
+    from ray_tpu_torch.util import state
+
+    sources = _recorded_sources(jax_metrics)
+    assert sources == _recorded_sources(metrics)   # the same snapshots
+    raw = {"ts": 3400.0, "sources": sources, "flight": [
+        {"source": "worker:b", "reason": "SIGTERM", "events": [1, 2],
+         "sticky": {"last_task": {"name": "step", "state": "RUNNING"}},
+         "path": "/flight/b.json"}]}
+    for mod in (state, jax_state):
+        monkeypatch.setattr(mod, "telemetry", lambda address=None: raw)
+        monkeypatch.setattr(mod, "metrics_history",
+                            lambda source=None, address=None:
+                            _recorded_history())
+        monkeypatch.setattr(mod, "serve_resilience",
+                            lambda address=None: _RESILIENCE)
+    monkeypatch.setenv("RT_SLO_CONFIG", _SLO_CONFIG)
+    return raw
+
+
+def test_cluster_summary_and_render_text_match_jax(recorded):
+    got, want = telemetry.cluster_summary(), jax_telemetry.cluster_summary()
+    assert got == want
+    for section in ("goodput", "train", "collectives", "serve", "llm",
+                    "checkpoints", "object_store", "worker_pool", "xla",
+                    "slo", "flight", "train_series"):
+        assert want[section], section       # every section was reached
+    assert got["serve"]["resilience"] == _RESILIENCE["deployments"]
+    assert telemetry.render_text(got) == jax_telemetry.render_text(want)
+
+
+def test_slo_evaluation_matches_jax(recorded):
+    from ray_tpu.util import slo as jax_slo
+    from ray_tpu_torch.util import slo
+
+    sources = recorded["sources"]
+    reports = []
+    for mod in (slo, jax_slo):
+        objectives, default = mod.objectives_from_env()
+        reports.append(mod.evaluate_all(
+            objectives, mod.status_series(_recorded_history()), now=3400.0,
+            latency_p99_ms=mod.latency_p99s(sources),
+            ttft_p99_ms=mod.latency_p99s(sources, metric=mod.TTFT_METRIC),
+            default_spec=default))
+    assert reports[0] == reports[1]
+    assert {r["status"] for r in reports[0]["objectives"]} != {"ok"}
+    assert slo.render_text(reports[0]) == jax_slo.render_text(reports[1])
+    assert slo.report(now=3400.0) == jax_slo.report(now=3400.0)
+
+
+def test_cluster_report_matches_jax(recorded, monkeypatch):
+    """The same peaks in both packages (their tables hold an H100's and
+    a TPU's): the reports are equal but for the wall-clock "ts" and the
+    peaks' label (the port's ``device`` for JAX's TPU ``gen``, the
+    rendered peaks line)."""
+    from ray_tpu.util import xprof as jax_xprof
+    from ray_tpu_torch.util import xprof
+
+    monkeypatch.setenv("RT_PEAK_FLOPS_PER_DEVICE", "989e12")
+    monkeypatch.setenv("RT_PEAK_HBM_BYTES_PER_SEC", "3.35e12")
+    monkeypatch.setenv("RT_INTERCONNECT_BYTES_PER_SEC", "450e9")
+    summary = telemetry.cluster_summary()
+    got = xprof.cluster_report(summary=summary)
+    want = jax_xprof.cluster_report(summary=summary)
+    def rates(report):
+        peaks = {k: v for k, v in report["peaks"].items()
+                 if k not in ("device", "gen")}
+        return {**report, "ts": None, "peaks": peaks}
+
+    assert rates(got) == rates(want)
+    assert sorted(got["programs"]) == ["llm_decode", "llm_prefill[16]",
+                                       "train_step"]
+    assert rates(xprof.cluster_report()) == rates(got)
+    text, want_text = (xprof.render_report(got),
+                       jax_xprof.render_report(want))
+    assert text.splitlines()[1:] == want_text.splitlines()[1:]
+
+
+def test_cluster_summary_reads_a_live_port_cluster():
+    """On a port cluster: a task's gauge, counter and histogram reach
+    the controller and come back through ``cluster_summary`` (goodput
+    and serve sections included); ``state.load_metrics``,
+    ``metrics_history``, ``serve_resilience`` and ``perf`` answer."""
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import state
+
+    rt.init(mode="cluster", num_cpus=2,
+            config={"metrics_report_period_s": 0.5})
+    try:
+        @rt.remote
+        def publish():
+            from ray_tpu_torch.util import goodput as gp
+            from ray_tpu_torch.util import metrics as m
+
+            m.Gauge("rt_goodput_seconds", "", tag_keys=("phase",)).set(
+                7.0, tags={"phase": "compute"})
+            m.Counter("rt_serve_requests_total", "",
+                      tag_keys=("deployment", "status_class")).inc(
+                3, tags={"deployment": "d", "status_class": "2xx"})
+            m.Histogram("rt_serve_request_seconds", "",
+                        tag_keys=("deployment",)).observe(
+                0.25, tags={"deployment": "d"})
+            time.sleep(3.0)         # outlive a few report periods
+            return gp.GAUGE_NAME
+
+        assert rt.get(publish.remote(), timeout=120) == "rt_goodput_seconds"
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            summary = telemetry.cluster_summary()
+            if summary["serve"].get("requests", {}).get("d"):
+                break
+            time.sleep(0.5)
+        assert summary["serve"]["requests"]["d"]["count"] == 1
+        assert summary["serve"]["status_classes"]["d"] == {"2xx": 3.0}
+        assert summary["goodput"]["seconds"]["compute"] == 7.0
+        assert "Serve ingress:" in telemetry.render_text(summary)
+        assert "nodes" in state.load_metrics() or state.load_metrics()
+        assert state.metrics_history()
+        assert state.serve_resilience() == {}
+        assert state.perf()["programs"] == {}
+    finally:
+        rt.shutdown()
 
 
 # ------------------------------------------------------ flight recorder
