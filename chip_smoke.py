@@ -70,6 +70,28 @@ Then the runtime and the trainer (``ray_tpu_torch.core``,
   within 1e-2 of one worker's) and a restart from a checkpoint after a
   hard exit (losses within 1e-3 of the uninterrupted run).
 
+Then the data and tune libraries (``ray_tpu_torch.data``,
+``ray_tpu_torch.tune``) on the training path:
+
+- ``[data]``: ``bench.py --data-pipeline``'s configuration: the main
+  path's model fed from a Dataset of 8 block tasks (``{"tokens": int32
+  [40, 1025]}`` from ``default_rng(1000 + i)``, 20 steps of B16) on a
+  cluster runtime, an unpipelined epoch (``prefetch_blocks=0``, the
+  copy to the card inline under ``train.data_wait()``) against a
+  pipelined one (``prefetch_blocks=2`` into
+  ``train.iter_device_batches(depth=2)``): every batch on ``cuda:0``
+  and bit-equal to the rows made from the seeds, the losses within
+  1e-3 of the same steps fed from host numpy, launches 24/12/12 a step;
+  it prints both epochs' tokens/s and ``data_stall`` shares;
+- ``[trainer data]``: ``TorchTrainer(datasets={"train": ds})``, the
+  worker training on ``train.get_dataset_shard("train")``: 6 reports,
+  losses within 1e-3 of ``[data]``'s first 6, launches 24/12/12 a step;
+- ``[tune]``: a ``Tuner`` over a ``TorchTrainer`` at 2 layers, a grid
+  of four rates under ASHA, two trials at a time sharing the card
+  (``GPU: 0.5``): no trial in ERROR, the best result the lowest loss,
+  every worker on GPU id 0, two trials overlapping, no libtorch in the
+  runtime's controller or node agent.
+
 Then the serving path (``ray_tpu_torch.llm``: the continuous-batching
 engine over the paged KV cache, plain PyTorch, no kernel of its own)
 runs in three phases, each through ``LLMDeployment.__call__`` after the
@@ -112,7 +134,8 @@ kernel's launches on the main path, error against its plain version,
 times and bound; one JSON line ``{"telemetry": {...}}`` with
 ``[telemetry]``'s numbers; one JSON line ``{"serving": [...]}`` with
 each serve phase's numbers; one JSON line ``{"runtime": {...}}`` with
-``[runtime]``'s and ``[trainer]``'s; one JSON line
+``[runtime]``'s and ``[trainer]``'s; one JSON line ``{"data": {...}}``
+with ``[data]``'s, ``[trainer data]``'s and ``[tune]``'s; one JSON line
 ``{"serve_plane": {...}}`` with ``[serve plane]``'s; the card's name and
 power limit
 (``nvidia-smi``); and
@@ -1623,11 +1646,13 @@ def seeded_bf16(seed: int):
                        dtype=torch.bfloat16)
 
 
-def main_path_parts(n_layer: int = 12, mesh=None):
+def main_path_parts(n_layer: int = 12, mesh=None,
+                    learning_rate: float = 3e-4):
     """The [main path] configuration at depth ``n_layer``: its config,
     state (seed-0 weights), step function and batch, built on the card.
     With a ``mesh``, [sharded]'s step over it: DTensor state, ring
-    attention, the full-logits loss, the batch split over the mesh."""
+    attention, the full-logits loss, the batch split over the mesh.
+    ``learning_rate`` is the optimizer's peak rate ([tune] varies it)."""
     import torch
 
     from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
@@ -1650,7 +1675,8 @@ def main_path_parts(n_layer: int = 12, mesh=None):
     model = gpt2_init(cfg, gen, device="cuda")
     tokens = torch.randint(0, cfg.vocab_size, (16, cfg.max_seq + 1),
                            generator=gen, device="cuda")
-    optimizer = make_optimizer(total_steps=1000)
+    optimizer = make_optimizer(learning_rate=learning_rate,
+                               total_steps=1000)
     state = TrainState.create(model, optimizer)
     if mesh is None:
         step = make_train_step(
@@ -1969,6 +1995,381 @@ def trainer_phase(card: str, unsharded: dict) -> dict:
     finally:
         rt.shutdown()
     return out
+
+
+# bench.py --data-pipeline's dataset: 8 blocks of 40 rows of 1025 tokens
+# (np.random.default_rng(1000 + i)), batches of 16: 20 steps an epoch.
+DATA = dict(blocks=8, rows=40, batch=16, seed=1000)
+
+
+def token_source(i: int, vocab: int, seq: int):
+    """Block ``i`` of the [data] dataset (a block task's source)."""
+    def src():
+        import numpy as np
+
+        rng = np.random.default_rng(DATA["seed"] + i)
+        return {"tokens": rng.integers(0, vocab, (DATA["rows"], seq + 1),
+                                       dtype=np.int64).astype(np.int32)}
+    return src
+
+
+def token_dataset():
+    """The [data] dataset (lazy: its blocks are made by block tasks on
+    each pass) and the rows it holds, built directly from the seeds."""
+    import numpy as np
+
+    from ray_tpu_torch import data as rt_data
+
+    vocab, seq = GPT2_124M["vocab_size"], GPT2_124M["max_seq"]
+    sources = [token_source(i, vocab, seq) for i in range(DATA["blocks"])]
+    rows = np.concatenate([src()["tokens"] for src in sources])
+    return rt_data.Dataset(sources), rows
+
+
+def control_plane_torch() -> list:
+    """Whether the runtime's controller and node agent map libtorch."""
+    from ray_tpu_torch.core import runtime as runtime_mod
+
+    out = []
+    for proc in runtime_mod.get_runtime()._procs:
+        with open(f"/proc/{proc.pid}/maps") as f:
+            out.append("libtorch" in f.read())
+    return out
+
+
+def data_epoch(batches, state, step, *, inline_copy: bool):
+    """One pass of [data]: a step per batch; returns (tokens/s, the
+    data_stall share of the wall time, the losses, the batches as the
+    step saw them).  ``inline_copy``: the loop waits for each host batch
+    under ``train.data_wait()`` and copies it to the card itself;
+    otherwise ``batches`` yields batches already placed on the card."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.util import goodput
+
+    seq = GPT2_124M["max_seq"]
+    ledger = goodput.reset()
+    seen, losses = [], []
+    it = iter(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if inline_copy:
+                with train.data_wait():
+                    host = next(it)
+                b = {"tokens": torch.as_tensor(host["tokens"],
+                                               device="cuda")}
+            else:
+                b = next(it)
+        except StopIteration:
+            break
+        with ledger.phase("compute"):
+            state, m = step(state, b)
+        seen.append(b["tokens"])
+        losses.append(m["loss"])
+    with ledger.phase("compute"):
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stall = ledger.snapshot()["seconds"].get("data_stall", 0.0)
+    return (len(seen) * DATA["batch"] * seq / wall, stall / wall,
+            [float(x) for x in losses], seen)
+
+
+def check_batches(seen, rows, what: str) -> None:
+    """Every batch on the card and equal, in order, to the rows built
+    directly from the seeds."""
+    import torch
+
+    b = DATA["batch"]
+    want = len(rows) // b
+    if len(seen) != want:
+        raise RuntimeError(f"{what}: {len(seen)} batches, expected {want}")
+    for i, t in enumerate(seen):
+        if t.device != torch.device("cuda", 0):
+            raise RuntimeError(f"{what}: batch {i} on {t.device}")
+        if not torch.equal(t.cpu(), torch.from_numpy(rows[i * b:(i + 1) * b])):
+            raise RuntimeError(f"{what}: batch {i} differs from the rows "
+                               f"made from its seeds")
+
+
+def data_phase(card: str) -> dict:
+    """[data] ``bench.py --data-pipeline``'s configuration on the port:
+    GPT-2 124M (full depth, B16 T1024, bf16 flash, seed-0 weights) fed
+    from a ``ray_tpu_torch.data`` Dataset of 8 block tasks (each
+    ``{"tokens": int32 [40, 1025]}`` from ``default_rng(1000 + i)``) on
+    ``init(mode="cluster", num_cpus=2)``.  After an untimed pass (the
+    block tasks' workers start) and a warm step, two epochs of 20 steps
+    from fresh seed-0 states: unpipelined (``prefetch_blocks=0``, the
+    loop waits under ``train.data_wait()`` and copies each batch to the
+    card itself) and pipelined (``prefetch_blocks=2`` into
+    ``train.iter_device_batches(depth=2)``).  Checks: 20 batches each,
+    every batch on ``cuda:0`` and bit-equal, in order, to the rows made
+    directly from the seeds; the pipelined losses within 1e-3 of 20
+    steps fed those rows straight from host numpy (bit-equal expected);
+    flash launches 24/12/12 a step in the pipelined epoch.  Prints both
+    epochs' tokens/s, their ratio and their ``data_stall`` shares.
+    Returns the numbers, the pipelined losses and the dataset."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    b = DATA["batch"]
+    rt.init(mode="cluster", num_cpus=2)
+    try:
+        ds, rows = token_dataset()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in ds.iter_batches(batch_size=b, drop_last=True,
+                                           prefetch_blocks=0))
+        print(f"  untimed pass: {n} batches in "
+              f"{time.perf_counter() - t0:.3f} s (block tasks' workers "
+              f"start)")
+        _cfg, state, step, data = main_path_parts()
+        state, _m = step(state, data)            # warm the card
+        del state, data
+        free_device_memory()
+
+        _cfg, state, step, _d = main_path_parts()
+        base_tok_s, base_stall, base_losses, seen = data_epoch(
+            ds.iter_batches(batch_size=b, batch_format="numpy",
+                            drop_last=True, prefetch_blocks=0),
+            state, step, inline_copy=True)
+        check_batches(seen, rows, "unpipelined epoch")
+        del state, seen
+        free_device_memory()
+
+        _cfg, state, step, _d = main_path_parts()
+        _kernels.reset_launches()
+        pipe_tok_s, pipe_stall, losses, seen = data_epoch(
+            train.iter_device_batches(
+                ds.iter_batches(batch_size=b, batch_format="numpy",
+                                drop_last=True, prefetch_blocks=2),
+                depth=2),
+            state, step, inline_copy=False)
+        launches = dict(_kernels.launches)
+        check_batches(seen, rows, "pipelined epoch")
+        del state, seen
+        free_device_memory()
+        steps = len(rows) // b
+        want = {"flash_fwd": 24 * steps, "flash_dkv": 12 * steps,
+                "flash_dq": 12 * steps}
+        if launches != want:
+            raise RuntimeError(f"pipelined epoch's launches {launches}, "
+                               f"expected {want}")
+
+        _cfg, state, step, _d = main_path_parts()
+        direct = []
+        for i in range(steps):
+            state, m = step(state, {"tokens": torch.as_tensor(
+                rows[i * b:(i + 1) * b], device="cuda")})
+            direct.append(m["loss"])
+        direct = [float(x) for x in direct]
+        del state
+        free_device_memory()
+        gap = max(abs(x - y) for x, y in zip(losses, direct))
+        base_gap = max(abs(x - y) for x, y in zip(base_losses, direct))
+        print(f"  losses (pipelined) {losses}")
+        print(f"  largest loss difference from the steps fed straight "
+              f"from host numpy: pipelined {gap:.3e}, unpipelined "
+              f"{base_gap:.3e} (limit 1e-3); launches {launches}")
+        if not gap <= 1e-3 or not base_gap <= 1e-3:
+            raise RuntimeError("the dataset-fed losses differ from the "
+                               "directly fed ones")
+        seconds = time.perf_counter() - t_phase
+        print(f"  unpipelined {base_tok_s:.1f} tokens/s, data_stall share "
+              f"{base_stall:.4f}; pipelined {pipe_tok_s:.1f} tokens/s, "
+              f"data_stall share {pipe_stall:.4f}; ratio "
+              f"{pipe_tok_s / base_tok_s:.4f} (card: {card}); phase "
+              f"{seconds:.1f} s")
+    finally:
+        rt.shutdown()
+    return {"tokens_per_s": pipe_tok_s, "unpipelined_tokens_per_s":
+            base_tok_s, "ratio": pipe_tok_s / base_tok_s,
+            "data_stall_share": pipe_stall,
+            "data_stall_share_unpipelined": base_stall, "loss_gap": gap,
+            "seconds": seconds}, losses, ds
+
+
+def data_trainer_loop(config):
+    """A TorchTrainer worker fed from its dataset shard: the [main path]
+    configuration at depth ``config["n_layer"]`` (peak rate
+    ``config["lr"]``), ``config["steps"]`` steps on the shard's batches
+    (``prefetch_blocks=2`` into ``train.iter_device_batches``) with
+    ``train.report`` after each.  Each report carries the loss, the
+    worker's ``CUDA_VISIBLE_DEVICES``, its pid and the step's wall
+    interval; the last one the flash launches counted here."""
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import _kernels
+
+    if config["dtype"] is not torch.bfloat16:
+        raise RuntimeError(f"the loop's config arrived with dtype "
+                           f"{config['dtype']!r}")
+    _cfg, state, step, _d = main_path_parts(config["n_layer"],
+                                            learning_rate=config["lr"])
+    shard = train.get_dataset_shard("train")
+    batches = train.iter_device_batches(
+        shard.iter_batches(batch_size=config["batch"],
+                           batch_format="numpy", drop_last=True,
+                           prefetch_blocks=2), depth=2)
+    _kernels.reset_launches()
+    begin = time.time()
+    for i, b in enumerate(batches):
+        if b["tokens"].device != torch.device("cuda", 0):
+            raise RuntimeError(f"batch on {b['tokens'].device}")
+        state, m = step(state, b)
+        metrics = {"step": i + 1, "loss": float(m["loss"]),
+                   "gpu": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "pid": os.getpid(), "begin": begin, "end": time.time()}
+        if i + 1 == config["steps"]:
+            metrics["launches"] = dict(_kernels.launches)
+        train.report(metrics)
+        if i + 1 == config["steps"]:
+            break
+    batches.close()
+    return True
+
+
+def trainer_data_phase(card: str, ds, losses) -> dict:
+    """[trainer data] ``TorchTrainer(ScalingConfig(num_workers=1,
+    use_gpu=True), datasets={"train": ds})`` over [data]'s dataset: the
+    worker reads ``train.get_dataset_shard("train")`` and runs the full
+    depth step 1 + 5 times.  Checks: 6 reports, losses within 1e-3 of
+    [data]'s pipelined first 6, the worker's launches 24/12/12 a
+    step."""
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    t_phase = time.perf_counter()
+    rt.init(mode="cluster", num_cpus=2)
+    try:
+        with tempfile.TemporaryDirectory() as storage:
+            result = TorchTrainer(
+                data_trainer_loop,
+                train_loop_config={"n_layer": 12, "steps": 6, "lr": 3e-4,
+                                   "batch": DATA["batch"],
+                                   "dtype": torch.bfloat16},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                run_config=RunConfig(name="trainer_data",
+                                     storage_path=storage),
+                datasets={"train": ds}).fit()
+        if result.error is not None:
+            raise RuntimeError(f"fit failed: {result.error!r}")
+        hist = [h["metrics"] for h in result.metrics_history]
+        got = [h["loss"] for h in hist]
+        launches = hist[-1].get("launches") if hist else None
+        gap = max((abs(a - b) for a, b in zip(got, losses)), default=0.0)
+        print(f"  {len(hist)} reports; losses {got}; largest difference "
+              f"from [data]'s first 6 {gap:.3e} (limit 1e-3); worker "
+              f"launches {launches}; GPU {hist[0]['gpu'] if hist else None}")
+        if len(hist) != 6 or not gap <= 1e-3:
+            raise RuntimeError("the trainer's dataset-fed losses differ "
+                               "from [data]'s")
+        if launches != {"flash_fwd": 144, "flash_dkv": 72, "flash_dq": 72}:
+            raise RuntimeError(f"worker launches {launches}")
+        seconds = time.perf_counter() - t_phase
+        print(f"  phase {seconds:.1f} s (card: {card})")
+    finally:
+        rt.shutdown()
+    return {"loss_gap": gap, "seconds": seconds}
+
+
+TUNE = dict(n_layer=2, steps=8, lrs=[1e-4, 3e-4, 1e-3, 3e-3])
+
+
+def tune_phase(card: str, ds) -> dict:
+    """[tune] a ``Tuner`` over a ``TorchTrainer`` at GPT-2 124M widths
+    with 2 layers: ``grid_search`` over four peak rates, two trials at a
+    time under ``ASHAScheduler(max_t=8, grace_period=2)``, each trial a
+    one-worker trainer (``{"CPU": 1, "GPU": 0.5}``, so two share the
+    card) running 8 steps on [data]'s dataset and reporting the loss
+    each step; the trainer's loop config holds a ``torch.bfloat16``.
+    Checks: every trial ends TERMINATED or STOPPED, none ERROR;
+    ``get_best_result()`` is the trial with the lowest last loss; every
+    trial's worker saw GPU id 0; two trials ran at the same time; the
+    runtime's controller and node agent mapped no libtorch."""
+    import itertools
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    t_phase = time.perf_counter()
+    rt.init(mode="cluster", num_cpus=8)
+    try:
+        with tempfile.TemporaryDirectory() as storage:
+            trainer = TorchTrainer(
+                data_trainer_loop,
+                train_loop_config={"n_layer": TUNE["n_layer"],
+                                   "steps": TUNE["steps"],
+                                   "batch": DATA["batch"],
+                                   "dtype": torch.bfloat16},
+                scaling_config=ScalingConfig(
+                    num_workers=1,
+                    resources_per_worker={"CPU": 1, "GPU": 0.5}),
+                run_config=RunConfig(name="tuned", storage_path=storage),
+                datasets={"train": ds})
+            grid = tune.Tuner(
+                trainer,
+                param_space={"lr": tune.grid_search(TUNE["lrs"])},
+                tune_config=tune.TuneConfig(
+                    metric="loss", mode="min", max_concurrent_trials=2,
+                    scheduler=tune.ASHAScheduler(
+                        max_t=TUNE["steps"], grace_period=2))).fit()
+        plane = control_plane_torch()
+        trials = grid.trials
+        for t in trials:
+            last = t.last_metrics()
+            print(f"  lr {t.config['lr']:g}: {t.status}, "
+                  f"{len(t.history)} reports, last loss "
+                  f"{last.get('loss')}, GPU "
+                  f"{sorted({h.get('gpu') for h in t.history})}"
+                  + (f", error {t.error!r}" if t.error else ""))
+        bad = [t for t in trials if t.status not in ("TERMINATED",
+                                                     "STOPPED")]
+        if len(trials) != 4 or bad:
+            raise RuntimeError(f"trials {[t.status for t in trials]}")
+        best = grid.get_best_result()
+        lowest = min(t.last_metrics()["loss"] for t in trials)
+        gpus = {h.get("gpu") for t in trials for h in t.history}
+        spans = [(min(h["begin"] for h in t.history),
+                  max(h["end"] for h in t.history)) for t in trials]
+        overlap = any(a[0] < b[1] and b[0] < a[1]
+                      for a, b in itertools.combinations(spans, 2))
+        print(f"  best lr {grid.best_config.get('lr')}: loss "
+              f"{best.metrics['loss']} (lowest last loss {lowest}); GPU "
+              f"ids seen {sorted(gpus, key=str)}; two trials overlapped "
+              f"{overlap}; controller/agent map libtorch {plane}")
+        if best.metrics["loss"] != lowest:
+            raise RuntimeError("get_best_result is not the lowest loss")
+        if gpus != {"0"}:
+            raise RuntimeError(f"trial workers saw GPU ids {gpus}")
+        if not overlap:
+            raise RuntimeError("no two trials ran at the same time")
+        if plane != [False, False]:
+            raise RuntimeError(f"control plane maps libtorch: {plane}")
+        seconds = time.perf_counter() - t_phase
+        print(f"  Tuner wall time {seconds:.1f} s, 4 trials of "
+              f"{TUNE['steps']} steps at 2 layers (card: {card})")
+    finally:
+        rt.shutdown()
+    return {"seconds": seconds, "best_lr": grid.best_config.get("lr"),
+            "statuses": [t.status for t in trials]}
 
 
 def _at(tree, name: str):
@@ -2804,6 +3205,20 @@ def main() -> int:
     print("[trainer] TorchTrainer: the [main path] configuration in a GPU "
           "worker, a world-2 gloo gang, a restart from a checkpoint")
     runtime.update(trainer_phase(card, unsharded))
+    free_device_memory()
+
+    print("[data] GPT-2 124M fed from a ray_tpu_torch.data Dataset of 8 "
+          "block tasks: unpipelined against prefetch_blocks=2 + "
+          "iter_device_batches(depth=2)")
+    data, data_losses, ds = data_phase(card)
+    print("[trainer data] TorchTrainer(datasets={'train': ds}): the "
+          "worker trains on get_dataset_shard('train')")
+    data["trainer"] = trainer_data_phase(card, ds, data_losses[:6])
+    free_device_memory()
+    print("[tune] Tuner over a TorchTrainer at 2 layers: grid of 4 rates, "
+          "ASHA, two trials sharing the card")
+    data["tune"] = tune_phase(card, ds)
+    free_device_memory()
 
     serving = []
     for name, phase in (("GPT-2 124M", serve_gpt2),
@@ -2827,6 +3242,7 @@ def main() -> int:
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"runtime": runtime}))
+    print(json.dumps({"data": data}))
     print(json.dumps({"serve_plane": plane}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1934,6 +1934,7 @@ class ClusterRuntime(BaseRuntime):
 
     # ------------------------------------------------------------- actors
     def create_actor(self, spec: TaskSpec) -> None:
+        self._pack_creation_values(spec)
         payload = {
             "spec": spec, "class_name": spec.name.split(".")[0],
             "method_names": spec.method_names,
@@ -1954,6 +1955,24 @@ class ClusterRuntime(BaseRuntime):
         self._add_submitted_holds(held)
         self.io.call_soon(lambda: self.io.loop.create_task(
             self._create_actor_async(spec, held, payload)))
+
+    def _pack_creation_values(self, spec: TaskSpec) -> None:
+        """Pack each VALUE creation argument into bytes, once, here: the
+        controller keeps the creation spec (replayed on restart) and
+        the node agent forwards it, and neither may decode a value (a
+        torch object in a model config would import torch into that
+        control-plane process).  Refs embedded in the values escape
+        with them, so in-band ones are promoted to the plane."""
+        from . import serialization
+        from .object_ref import collect_embedded_refs
+
+        with collect_embedded_refs() as embedded:
+            for arg in spec.args:
+                if arg.kind == ArgKind.VALUE:
+                    arg.kind = ArgKind.PACKED
+                    arg.value = serialization.dumps(arg.value)
+        if embedded:
+            self.promote_refs_to_plane(embedded)
 
     async def _create_actor_async(self, spec: TaskSpec,
                                   held: Optional[List[ObjectID]]

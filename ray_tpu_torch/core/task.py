@@ -27,12 +27,17 @@ class TaskKind(enum.Enum):
 class ArgKind(enum.Enum):
     VALUE = 0      # inline serialized value
     OBJECT_REF = 1  # must be resolved before dispatch
+    # An actor's creation value, pickled by its owner
+    # (``serialization.dumps``): only the worker decodes it, so the
+    # controller and the node agent, which hold the creation spec for
+    # restarts, never load the value's classes (torch among them).
+    PACKED = 2
 
 
 @dataclass
 class TaskArg:
     kind: ArgKind
-    value: Any = None                  # for VALUE (already picklable payload)
+    value: Any = None                  # VALUE: the object; PACKED: bytes
     object_id: Optional[ObjectID] = None  # for OBJECT_REF
 
 

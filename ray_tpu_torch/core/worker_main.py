@@ -342,6 +342,8 @@ class Worker:
                 # owner can reconstruct and retry, not hang for hours.
                 ref = ObjectRef(a.object_id, counted=False)
                 vals.append(self.runtime.get([ref], timeout)[0])
+            elif a.kind == ArgKind.PACKED:
+                vals.append(serialization.loads_message(a.value))
             else:
                 vals.append(a.value)
         nkw = len(spec.kwargs_keys)

@@ -27,6 +27,14 @@ import ray_tpu_torch
 
 CONTROLLER_NAME = "rt_serve_controller"
 
+# A replica that has never answered a health probe is starting (its
+# worker, constructor and first build can outlast the 10 s probe on a
+# GPU host, more so with two replicas starting on one card): a probe
+# timeout then is not a death until this many seconds after its first
+# probe.  A replica that dies still fails its probe with an error and
+# is replaced at once.
+REPLICA_STARTUP_S = 120.0
+
 
 class _Replica:
     """Hosts one replica of a deployment (class instance or function)."""
@@ -233,6 +241,10 @@ class ServeController:
         # loop — redesigned lock+generation since our methods are
         # threaded).
         self._lock = threading.RLock()
+        # Startup grace (REPLICA_STARTUP_S): when each replica was first
+        # probed, and which replicas have answered a probe.
+        self._first_probe: Dict[Any, float] = {}
+        self._answered: set = set()
         # Config-push plumbing (ref: serve/_private/long_poll.py): one
         # global version bumped on every replica-set/route change;
         # handles and proxies long-poll poll_update() and get woken by
@@ -377,6 +389,9 @@ class ServeController:
             self._reap_draining(entry)
         if not replicas:
             return
+        now = time.time()
+        for r in replicas:
+            self._first_probe.setdefault(r._actor_id, now)
         health_refs = [r.health.remote() for r in replicas]
         ongoing_refs = [r.ongoing.remote() for r in replicas]
         health = self._batched_probe(health_refs, timeout=10)
@@ -386,7 +401,13 @@ class ServeController:
             if entry is None or entry["gen"] != gen:
                 return  # redeployed/deleted while probing; stale view
             for i, h in enumerate(health):
-                if isinstance(h, Exception):
+                aid = replicas[i]._actor_id
+                if not isinstance(h, Exception):
+                    self._answered.add(aid)
+                elif not (isinstance(h, TimeoutError)
+                          and aid not in self._answered
+                          and time.time() - self._first_probe[aid]
+                          < REPLICA_STARTUP_S):
                     self.replace_dead_replica(name, i,
                                               reason="health_probe")
             counts = [v for v in ongoing

@@ -22,10 +22,11 @@ metrics stay with the caller.
 - ``iter_device_batches`` overlaps the host-to-device copy of the next
   batches with the step on the current one;
 - ``save_sharded_checkpoint`` / ``load_sharded_checkpoint`` run over
-  ``train/sharded_checkpoint.py``.
-
-``get_dataset_shard`` arrives with the data slice (ROADMAP Queue 1
-item 5, "data and tune") and raises NotImplementedError until then.
+  ``train/sharded_checkpoint.py``;
+- ``get_dataset_shard`` returns this worker's shard of a dataset the
+  trainer was given (``TorchTrainer(datasets=...)``): a
+  ``ray_tpu_torch.data`` Dataset whose ``iter_batches`` feeds
+  ``iter_device_batches``.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ from .checkpoint import Checkpoint
 from .config import TelemetryConfig
 
 _session: Optional["TrainSession"] = None
-
-_NO_DATA = ("arrives with the data slice of the port (ROADMAP Queue 1 "
-            "item 5, 'data and tune')")
 
 
 @dataclass
@@ -254,8 +252,11 @@ class TrainSession:
                                  target=target, validate=validate)
 
     def get_dataset_shard(self, name: str = "train"):
-        raise NotImplementedError(
-            f"dataset shards come from the data slice, which {_NO_DATA}")
+        shard = self.dataset_shards.get(name)
+        if shard is None:
+            raise KeyError(f"no dataset shard {name!r} was provided to "
+                           f"the trainer")
+        return shard
 
 
 def init_session(**kwargs) -> TrainSession:

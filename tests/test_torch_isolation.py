@@ -38,6 +38,14 @@ SERVE_MODULES = ("serve/__init__.py", "serve/deployment.py",
                  "testing/chaos.py", "util/slo.py", "util/telemetry.py",
                  "util/state.py", "util/xprof.py", "llm/serving.py")
 
+# The data and tune libraries.
+DATA_TUNE_MODULES = ("data/__init__.py", "data/block.py", "data/context.py",
+                     "data/logical.py", "data/dataset.py",
+                     "data/aggregate.py", "data/grouped_data.py",
+                     "data/iterator.py", "tune/__init__.py",
+                     "tune/search.py", "tune/schedulers.py",
+                     "tune/tuner.py")
+
 
 def _forbidden(module: str) -> bool:
     return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
@@ -132,6 +140,9 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.proxy\n"
         "import ray_tpu_torch.serve.grpc_proxy\n"
         "import ray_tpu_torch.testing.chaos, ray_tpu_torch.util.slo\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.dataset\n"
+        "import ray_tpu_torch.data.grouped_data, ray_tpu_torch.data.iterator\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.tune.tuner\n"
         "from ray_tpu_torch.core import serialization\n"
         "serialization.dumps(lambda: 1)\n"
         "grpc = [m for m in sys.modules if m.split('.')[0] == 'grpc']\n"
@@ -171,8 +182,34 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "util/state.py", "train/trainer.py",
                    "train/backend.py", "train/worker_group.py",
                    "train/v2.py", "_vendor/cloudpickle/cloudpickle.py",
-                   *SERVE_MODULES):
+                   *SERVE_MODULES, *DATA_TUNE_MODULES):
         assert module in files
+
+
+def test_data_and_tune_load_no_arrow_pandas_or_cloudpickle():
+    """The card machine has no pyarrow, pandas or cloudpickle: the
+    libraries import them only inside the functions that need the
+    first two, and use the vendored pickler.  Building and running a
+    pipeline of dict-of-numpy blocks without a runtime loads none of
+    them either (checked as a delta in a fresh interpreter)."""
+    code = ("import sys\n"
+            "before = set(sys.modules)\n"
+            "import numpy as np\n"
+            "import ray_tpu_torch.data as data, ray_tpu_torch.tune\n"
+            "import ray_tpu_torch.data.grouped_data\n"
+            "ds = data.Dataset([lambda i=i: {'t': np.full((4, 3), i)}\n"
+            "                   for i in range(3)]).map_batches(\n"
+            "    lambda b: {'t': b['t'] + 1})\n"
+            "assert sum(len(b['t']) for b in ds.iter_batches(\n"
+            "    batch_size=5, prefetch_blocks=2)) == 12\n"
+            "new = set(sys.modules) - before\n"
+            "print(sorted(m for m in new if m.split('.')[0] in "
+            "('pyarrow', 'pandas', 'cloudpickle', 'jax')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_control_plane_imports_no_torch():

@@ -479,6 +479,85 @@ class TestOnePortCluster:
         assert rt.get(fresh.remote(), timeout=120) == []
 
 
+    def test_actor_creation_values_never_reach_the_control_plane(self):
+        """An actor built from a model config that holds a torch dtype:
+        its creation values travel as bytes that only the worker
+        decodes, so neither the controller nor the node agent maps
+        libtorch, and the actor sees an equal config."""
+        import ray_tpu_torch as rt
+
+        cfg, holder = _config_holder(rt)
+        got_cfg, scale, pid = rt.get(holder.view.remote(), timeout=120)
+        assert got_cfg == cfg and got_cfg.dtype is torch.bfloat16
+        assert scale.tolist() == [0.0, 1.0, 2.0]
+        assert _control_plane_maps_torch(rt) == [False, False]
+        assert _maps_torch(pid)
+        rt.kill(holder)
+
+    def test_a_restarted_actor_gets_the_same_creation_values(self):
+        """Its worker killed once (the actor exits its process) under
+        ``max_restarts=1``, the actor comes back
+        from the controller's copy of its creation spec with the same
+        arguments, and the control plane still has no libtorch."""
+        import ray_tpu_torch as rt
+
+        cfg, holder = _config_holder(rt)
+        first = rt.get(holder.view.remote(), timeout=120)
+        holder.die.remote()
+        deadline = time.time() + 120
+        while True:
+            try:
+                again = rt.get(holder.view.remote(), timeout=30)
+                if again[2] != first[2]:
+                    break
+            except rt.RayTpuError:
+                pass          # the old instance's death, seen first
+            assert time.time() < deadline, "the actor never restarted"
+            time.sleep(0.2)
+        assert again[0] == cfg and again[0].dtype is torch.bfloat16
+        assert again[1].tolist() == [0.0, 1.0, 2.0]
+        assert _control_plane_maps_torch(rt) == [False, False]
+        rt.kill(holder)
+
+
+def _config_holder(rt):
+    from ray_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config(vocab_size=64, n_layer=1, n_head=2, d_model=16,
+                     d_ff=32, max_seq=8, dtype=torch.bfloat16)
+
+    @rt.remote(max_restarts=1)
+    class Holder:
+        def __init__(self, cfg, scale):
+            import os
+
+            self.cfg, self.scale, self.pid = cfg, scale, os.getpid()
+
+        def view(self):
+            return self.cfg, self.scale, self.pid
+
+        def die(self):
+            import os
+
+            os._exit(1)
+
+    return cfg, Holder.remote(cfg, scale=np.arange(3.0))
+
+
+def _maps_torch(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def _control_plane_maps_torch(rt) -> list:
+    """Whether the controller and the node agent map libtorch."""
+    from ray_tpu_torch.core import runtime as runtime_mod
+
+    control = [p.pid for p in runtime_mod.get_runtime()._procs]
+    assert len(control) == 2
+    return [_maps_torch(pid) for pid in control]
+
+
 def test_pickler_without_cloudpickle_installed(tmp_path):
     """Closures, lambdas and ``__main__`` classes reach workers through
     the vendored pickler in a cluster where ``import cloudpickle``

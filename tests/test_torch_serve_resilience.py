@@ -538,3 +538,33 @@ def test_resilience_program_matches_jax(results, name):
     assert not (isinstance(jax_out, tuple) and jax_out[:1] == ("raised",)), \
         jax_out
     assert port_out == jax_out
+
+
+def test_a_replica_still_starting_is_not_replaced(results):
+    """The port's serve controller (unlike the JAX package's) gives a
+    replica that has never answered a health probe a startup grace:
+    one whose constructor outlasts the 10 s probe is not replaced as
+    dead (which would start another that outlasts it too), and it
+    serves once up."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    @serve.deployment(num_replicas=1)
+    class Slow:
+        def __init__(self):
+            time.sleep(13.0)
+
+        def __call__(self, x):
+            return x + 1
+
+    rt.init(mode="cluster", num_cpus=4)
+    try:
+        handle = serve.run(Slow.bind(), route_prefix="/slow")
+        assert rt.get(handle.remote(1), timeout=120) == 2
+        ctl = rt.get_actor(serve.CONTROLLER_NAME)
+        stats = rt.get(ctl.resilience_stats.remote())["Slow"]
+        assert stats["replacements"] == []
+        assert stats["replicas"] == 1
+    finally:
+        serve.shutdown()
+        rt.shutdown()

@@ -226,7 +226,7 @@ def test_what_waits_for_the_runtime_raises():
         assert session_mod.get_session() is sess
         assert not session_mod.interrupted()
         assert session_mod.get_world_size() == 1
-        with pytest.raises(NotImplementedError, match="data slice"):
+        with pytest.raises(KeyError, match="no dataset shard 'train'"):
             session_mod.get_dataset_shard()
         session_mod.report({"step": 7})
         assert _gauges(metrics)["rt_train_step"][0]["value"] == 7.0
