@@ -92,6 +92,29 @@ Then the data and tune libraries (``ray_tpu_torch.data``,
   every worker on GPU id 0, two trials overlapping, no libtorch in the
   runtime's controller or node agent.
 
+Then the RL stack (``ray_tpu_torch.rl``) and the graft entry:
+
+- ``[rl]`` (a): the PPO, IMPALA, DQN, SAC and BC learners at the JAX
+  tests' default widths (hidden (64, 64); PPO a [T128, N4] rollout,
+  minibatch 128, 4 epochs), each built on the card and on the CPU from
+  the same weights, take one update on the same seeded batch: every
+  parameter within 1e-4; then 20 more updates on the card, every loss
+  finite, timed by CUDA events and the host clock, and 5 under
+  ``torch.profiler`` (kernel busy time and launches an update); (b) two
+  ``ImpalaTorchLearner`` actors leased ``GPU: 0.5`` each in a gloo
+  group update on different batches, then ``sync_weights_collective``:
+  both hold the host mean of their weights within 1e-6; (c)
+  ``MultiAgentPPO`` self-play on tests/test_rl_multi_agent.py's
+  two-agent bandit with the learners on the card, 12 iterations: each
+  policy ends above 5.0 and 1.0 over its first iteration (JAX's bar),
+  with env steps/s and the sampling/learning split; (d) where
+  ``gymnasium`` is installed (decided once with ``find_spec``, printed
+  either way), PPO on CartPole-v1 with the learner on the card to JAX's
+  bar (above 50 after iteration 5, and 2.5x the first);
+- ``[entry]``: ``ray_tpu_torch.entry.entry()`` (the counterpart of
+  ``__graft_entry__.entry``): logits [2, 128, 8192], finite, within the
+  bf16 bound of the same weights' CPU forward; its CUDA-event time.
+
 Then the serving path (``ray_tpu_torch.llm``: the continuous-batching
 engine over the paged KV cache, plain PyTorch, no kernel of its own)
 runs in three phases, each through ``LLMDeployment.__call__`` after the
@@ -136,12 +159,11 @@ times and bound; one JSON line ``{"telemetry": {...}}`` with
 each serve phase's numbers; one JSON line ``{"runtime": {...}}`` with
 ``[runtime]``'s and ``[trainer]``'s; one JSON line ``{"data": {...}}``
 with ``[data]``'s, ``[trainer data]``'s and ``[tune]``'s; one JSON line
-``{"serve_plane": {...}}`` with ``[serve plane]``'s; the card's name and
-power limit
-(``nvidia-smi``); and
-last ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
-device-time breakdown of two more training steps, unsharded and sharded
-(see ``profile_steps``).
+``{"serve_plane": {...}}`` with ``[serve plane]``'s; one JSON line
+``{"rl": {...}}`` with ``[rl]``'s and ``[entry]``'s; the card's name
+and power limit (``nvidia-smi``); and last ``{"ok": true, "device":
+{...}}``.  ``--profile`` adds a device-time breakdown of two more
+training steps, unsharded and sharded (see ``profile_steps``).
 """
 
 import contextlib
@@ -2372,6 +2394,445 @@ def tune_phase(card: str, ds) -> dict:
             "statuses": [t.status for t in trials]}
 
 
+RL = dict(hidden=(64, 64), updates=20, tol=1e-4, seed=2024)
+
+
+def rl_batches():
+    """[rl] (a)'s seeded numpy batches at the JAX tests' default widths:
+    a PPO rollout [T128, N4] (CartPole's 4 observations, 2 actions), an
+    IMPALA batch of two [T64, N4] rollouts ([64, 8]), DQN's replay batch
+    of 64, SAC's of 256 (Pendulum's 3 observations, 1 action), BC's of
+    256."""
+    import numpy as np
+
+    rng = np.random.default_rng(RL["seed"])
+
+    def normal(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    t, n = 128, 4
+    ppo = {"obs": normal(t, n, 4), "actions": rng.integers(0, 2, (t, n)),
+           "rewards": normal(t, n),
+           "dones": (rng.random((t, n)) < 0.05).astype(np.float32),
+           "logp": rng.uniform(-1.2, -0.3, (t, n)).astype(np.float32),
+           "values": normal(t, n), "last_values": normal(n)}
+    t, n = 64, 8
+    impala = {"obs": normal(t, n, 4), "actions": rng.integers(0, 2, (t, n)),
+              "rewards": normal(t, n),
+              "dones": (rng.random((t, n)) < 0.05).astype(np.float32),
+              "logp": rng.uniform(-1.2, -0.3, (t, n)).astype(np.float32),
+              "last_obs": normal(n, 4)}
+
+    def transitions(b, obs_dim, actions):
+        return {"obs": normal(b, obs_dim), "actions": actions,
+                "rewards": normal(b),
+                "dones": (rng.random(b) < 0.1).astype(np.float32),
+                "next_obs": normal(b, obs_dim)}
+
+    dqn = transitions(64, 4, rng.integers(0, 2, 64).astype(np.int32))
+    sac = transitions(256, 3, rng.uniform(-1, 1, (256, 1)).astype(
+        np.float32))
+    bc = {"obs": normal(256, 4), "action": rng.integers(0, 2, 256)}
+    return {"PPO": ppo, "IMPALA": impala, "DQN": dqn, "SAC": sac, "BC": bc}
+
+
+def rl_learner(name: str, device: str):
+    """The learner ``name`` at the JAX tests' default widths, hidden
+    (64, 64), seed 0 (its initial weights come from a CPU generator, so
+    they are the same on every device)."""
+    from ray_tpu_torch import rl
+
+    spec = rl.RLModuleSpec(4, 2, RL["hidden"])
+    if name == "PPO":
+        return rl.PPOTorchLearner(
+            spec, rl.PPOConfig(minibatch_size=128, num_epochs=4),
+            device=device)
+    if name == "IMPALA":
+        return rl.ImpalaTorchLearner(spec, device=device)
+    if name == "DQN":
+        return rl.DQNTorchLearner(
+            spec, rl.DQNTrainConfig(target_sync_every=10), device=device)
+    if name == "SAC":
+        return rl.SACTorchLearner(
+            rl.ContinuousModuleSpec(3, 1, RL["hidden"]), device=device)
+    return rl.BCTorchLearner(spec, device=device)
+
+
+def rl_learner_state(learner) -> dict:
+    """Every tensor an update changes: the module, DQN's target network,
+    SAC's target critics and temperature; as float32 on the host."""
+    sd = {f"module.{k}": v for k, v in learner.module.state_dict().items()}
+    for part in ("target", "target_params"):
+        if hasattr(learner, part):
+            sd.update({f"{part}.{k}": v for k, v in
+                       getattr(learner, part).state_dict().items()})
+    if hasattr(learner, "log_alpha"):
+        sd["log_alpha"] = learner.log_alpha
+    return {k: v.detach().float().cpu() for k, v in sd.items()}
+
+
+def rl_learner_updates(card: str) -> dict:
+    """[rl] (a): each learner built on the card and on the CPU from the
+    same weights takes one update on the same batch (PPO: 4 epochs of 4
+    minibatches of 128, permutations from the learner's CPU generator);
+    every parameter must agree within ``RL["tol"]``.  Then 20 more
+    updates on the card, every loss finite, each timed by CUDA events
+    and the host clock (medians), and 5 under ``torch.profiler`` for the
+    kernels' busy time and launches an update."""
+    import torch
+
+    batches = rl_batches()
+    out = {}
+    for name, batch in batches.items():
+        learners = {d: rl_learner(name, d) for d in ("cuda", "cpu")}
+        learners["cpu"].module.load_state_dict(
+            learners["cuda"].module.state_dict())
+        first = {d: ln.update_from_batch(batch)
+                 for d, ln in learners.items()}
+        a, b = (rl_learner_state(ln) for ln in learners.values())
+        err = max(float((a[k] - b[k]).abs().max()) for k in a)
+        learner = learners["cuda"]
+        if next(learner.module.parameters()).device.type != "cuda":
+            raise RuntimeError(f"[rl] {name}: learner is not on the card")
+        host_ms, event_ms, losses = [], [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(RL["updates"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            m = learner.update_from_batch(batch)
+            end.record()
+            end.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            event_ms.append(start.elapsed_time(end))
+            losses.append(m.get("loss", m.get("critic_loss")))
+        prof = device_profile(lambda: learner.update_from_batch(batch), 5)
+        busy_ms = launches = None
+        if prof is not None:
+            by_name, busy, _wall = prof
+            busy_ms = busy / 5 / 1e3
+            launches = sum(c for _us, c in by_name.values()) // 5
+        row = {"max_abs_err": err, "first_metrics_cuda": first["cuda"],
+               "first_metrics_cpu": first["cpu"],
+               "host_ms": median(host_ms), "cuda_event_ms": median(event_ms),
+               "kernel_busy_ms": busy_ms, "launches": launches,
+               "losses_finite": all(math.isfinite(x) for x in losses)}
+        out[name] = row
+        print(f"  {name}: card vs CPU after one update, max |diff| "
+              f"{err:.3e} (tolerance {RL['tol']:g}); {RL['updates']} "
+              f"updates on the card: host {row['host_ms']:.3f} ms, CUDA "
+              f"events {row['cuda_event_ms']:.3f} ms (medians), kernels "
+              + (f"busy {busy_ms:.3f} ms, {launches} launches an update"
+                 if busy_ms is not None else "not measured (the profiler "
+                 "traced no device time)")
+              + f"; card: {card}")
+        if err > RL["tol"]:
+            raise RuntimeError(f"[rl] {name}: card and CPU updates differ "
+                               f"by {err}")
+        if not row["losses_finite"]:
+            raise RuntimeError(f"[rl] {name}: non-finite loss {losses}")
+    return out
+
+
+def card_impala_learner_class():
+    """``ImpalaTorchLearner`` with a probe of where it runs."""
+    from ray_tpu_torch.rl import ImpalaTorchLearner
+
+    class CardImpalaLearner(ImpalaTorchLearner):
+        def where(self) -> dict:
+            import os
+
+            import torch
+
+            return {"CUDA_VISIBLE_DEVICES":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(next(self.module.parameters()).device),
+                    "name": torch.cuda.get_device_name(0)}
+
+    return CardImpalaLearner
+
+
+def rl_impala_sync(card: str) -> dict:
+    """[rl] (b): two IMPALA learner actors leased ``GPU: 0.5`` each
+    (``learner_actor_class``), declared a ``cpu`` (gloo) collective
+    group, update on different batches, then ``sync_weights_collective``:
+    both must hold the same parameters, the host mean of what each held
+    before, within 1e-6."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl.learner import learner_actor_class, tree_mean
+
+    cls, dev = learner_actor_class(card_impala_learner_class(), 2,
+                                   torch.device("cuda"))
+    t0 = time.perf_counter()
+    learners = [cls.remote(rl.RLModuleSpec(4, 2, RL["hidden"]),
+                           rl.VTraceConfig(), seed=0, device=dev)
+                for _ in range(2)]
+    wheres = rt.get([ln.where.remote() for ln in learners], timeout=300)
+    start_s = time.perf_counter() - t0
+    group = "rl/impala-sync"
+    col.create_collective_group(learners, 2, [0, 1], backend="cpu",
+                                group_name=group)
+    try:
+        batch = rl_batches()["IMPALA"]
+        other = {k: (v[::-1].copy() if k != "last_obs" else v + 1.0)
+                 for k, v in batch.items()}
+        rt.get([ln.update_from_batch.remote(b)
+                for ln, b in zip(learners, (batch, other))], timeout=120)
+        before = rt.get([ln.get_weights.remote() for ln in learners])
+        mean = tree_mean(before)
+        t1 = time.perf_counter()
+        rt.get([ln.sync_weights_collective.remote(group)
+                for ln in learners], timeout=120)
+        sync_ms = 1e3 * (time.perf_counter() - t1)
+        after = rt.get([ln.get_weights.remote() for ln in learners])
+    finally:
+        for ln in learners:
+            rt.kill(ln)
+    leaves = [(layer, leaf) for layer in mean["params"]
+              for leaf in mean["params"][layer]]
+
+    def diff(x, y):
+        return max(float(np.abs(x["params"][a][b] - y["params"][a][b]).max())
+                   for a, b in leaves)
+
+    spread, between, to_mean = (diff(*before), diff(*after),
+                                max(diff(w, mean) for w in after))
+    print(f"  learners {wheres}, GPU lease {cls._options['num_gpus']} "
+          f"each, started in {start_s:.1f} s; before the sync they "
+          f"differ by {spread:.3e}; after it by {between:.3e}, and from "
+          f"the host mean by {to_mean:.3e}; sync {sync_ms:.1f} ms "
+          f"(card: {card})")
+    if cls._options["num_gpus"] != 0.5 or any(
+            not w["device"].startswith("cuda") for w in wheres):
+        raise RuntimeError(f"[rl] IMPALA learners not on the card: {wheres}")
+    if spread == 0.0 or between != 0.0 or to_mean > 1e-6:
+        raise RuntimeError("[rl] IMPALA collective sync did not average")
+    return {"where": wheres, "num_gpus_each": cls._options["num_gpus"],
+            "start_s": start_s, "spread_before": spread,
+            "spread_after": between, "err_vs_host_mean": to_mean,
+            "sync_ms": sync_ms}
+
+
+def bandit_env_class():
+    """tests/test_rl_multi_agent.py's ``TwoAgentBandit`` (numpy only):
+    each agent sees a one-hot context of 4 and earns 1 for acting on
+    it, plus 0.5 each when both do; episodes of 8 steps."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import MultiAgentEnv
+
+    class TwoAgentBandit(MultiAgentEnv):
+        possible_agents = ["a0", "a1"]
+        CONTEXTS = 4
+        EP_LEN = 8
+
+        def __init__(self, seed=0):
+            self._rng = np.random.default_rng(seed)
+            self._t = 0
+            self._ctx = {}
+
+        def _draw(self):
+            self._ctx = {aid: int(self._rng.integers(self.CONTEXTS))
+                         for aid in self.possible_agents}
+            return {aid: np.eye(self.CONTEXTS, dtype=np.float32)[c]
+                    for aid, c in self._ctx.items()}
+
+        def reset(self, *, seed=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = 0
+            return self._draw(), {}
+
+        def step(self, actions):
+            hits = {aid: float(int(actions[aid]) == self._ctx[aid])
+                    for aid in self.possible_agents}
+            bonus = 0.5 if all(hits.values()) else 0.0
+            rewards = {aid: h + bonus for aid, h in hits.items()}
+            self._t += 1
+            done = self._t >= self.EP_LEN
+            return (self._draw(), rewards, {"__all__": done},
+                    {"__all__": False}, {})
+
+    return TwoAgentBandit
+
+
+def timed_calls(fn, spent: list):
+    """``fn``, appending each call's host seconds to ``spent``."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def rl_multi_agent(card: str) -> dict:
+    """[rl] (c): ``MultiAgentPPO`` self-play on the two-agent bandit,
+    tests/test_rl_multi_agent.py's configuration (1 runner of 4 envs,
+    rollouts of 64, lr 3e-3, no entropy bonus, minibatch 128, 4 epochs)
+    with both policies' learners on the card, 12 iterations.  JAX's bar:
+    each policy's return ends above 5.0 and at least 1.0 over its first
+    iteration.  Prints env steps/s and the share of each iteration spent
+    sampling (the runner) and learning (the two updates on the card)."""
+    from ray_tpu_torch import rl
+
+    env = bandit_env_class()
+    spec = rl.RLModuleSpec(env.CONTEXTS, env.CONTEXTS, (32,))
+    algo = (rl.MultiAgentConfig()
+            .environment(env)
+            .multi_agent(policies={"p0": spec, "p1": spec},
+                         policy_mapping_fn=lambda aid:
+                         "p0" if aid == "a0" else "p1")
+            .env_runners(num_env_runners=1, num_envs_per_runner=4,
+                         rollout_length=64)
+            .learners(device="cuda")
+            .training(lr=3e-3, entropy_coeff=0.0, minibatch_size=128,
+                      num_epochs=4)
+            .build())
+    sample_s, learn_s = [], []
+    algo.env_runner_group.sample = timed_calls(algo.env_runner_group.sample,
+                                               sample_s)
+    for lg in algo.learners.values():
+        if lg.local.device.type != "cuda":
+            raise RuntimeError("[rl] multi-agent learner is not on the card")
+        lg.update = timed_calls(lg.update, learn_s)
+    results = []
+    try:
+        for _ in range(12):
+            results.append(algo.train())
+    finally:
+        algo.stop()
+    first, last = results[0], results[-1]
+    iters = [r["time_this_iter_s"] for r in results]
+    learn = [a + b for a, b in zip(learn_s[::2], learn_s[1::2])]
+    steps = 64 * 4
+    for aid in ("a0", "a1"):
+        key = f"episode_return_mean/{aid}"
+        print(f"  {aid}: return {first[key]:.3f} -> {last[key]:.3f}")
+    out = {"first": {k: v for k, v in first.items() if "return" in k},
+           "last": {k: v for k, v in last.items() if "return" in k},
+           "env_steps_per_s": steps * len(iters) / sum(iters),
+           "iteration_s_median": median(iters),
+           "sample_share": sum(sample_s) / sum(iters),
+           "learn_share": sum(learn) / sum(iters),
+           "learn_ms_median": 1e3 * median(learn)}
+    print(f"  {out['env_steps_per_s']:.1f} env steps/s ({steps} a "
+          f"iteration, 2 agents each); iteration {out['iteration_s_median']:.4f}"
+          f" s (median): sampling {out['sample_share']:.4f}, learning "
+          f"{out['learn_share']:.4f} (two updates, "
+          f"{out['learn_ms_median']:.3f} ms median; card: {card})")
+    for aid in ("a0", "a1"):
+        key = f"episode_return_mean/{aid}"
+        if not (last[key] > 5.0 and last[key] > first[key] + 1.0):
+            raise RuntimeError(f"[rl] multi-agent {aid} did not learn: "
+                               f"{first[key]} -> {last[key]}")
+    return out
+
+
+def rl_cartpole(card: str) -> dict:
+    """[rl] (d): where gymnasium is installed, PPO on CartPole-v1 as
+    tests/test_rl.py runs it (2 runners of 4 envs, rollouts of 128, lr
+    3e-3, minibatch 256, 4 epochs, 20 iterations) with the learner on
+    the card; JAX's bar: a mean return above 50 after iteration 5 and
+    above 2.5x the first iteration's."""
+    import importlib.util
+
+    if importlib.util.find_spec("gymnasium") is None:
+        print("  gymnasium is not installed here: PPO on CartPole-v1 "
+              "is not run")
+        return {"ran": False, "reason": "gymnasium is not installed"}
+    from ray_tpu_torch import rl
+
+    def make_env():
+        import gymnasium as gym
+
+        return gym.make("CartPole-v1")
+
+    algo = (rl.AlgorithmConfig()
+            .environment(make_env, observation_dim=4, action_dim=2)
+            .env_runners(num_env_runners=2, num_envs_per_runner=4,
+                         rollout_length=128)
+            .learners(device="cuda")
+            .training(lr=3e-3, minibatch_size=256, num_epochs=4)
+            .build())
+    try:
+        results = [algo.train() for _ in range(20)]
+    finally:
+        algo.stop()
+    returns = [r["episode_return_mean"] for r in results]
+    rate = median([r["env_steps_per_sec"] for r in results])
+    print(f"  PPO CartPole-v1 returns {[round(x, 1) for x in returns]}; "
+          f"{rate:.1f} env steps/s (median; card: {card})")
+    if not (max(returns[5:]) > 50 and max(returns) > 2.5 * returns[0]):
+        raise RuntimeError(f"[rl] PPO CartPole did not learn: {returns}")
+    return {"ran": True, "returns": returns, "env_steps_per_s": rate}
+
+
+def rl_phase(card: str) -> dict:
+    """[rl]: (a) the five learners' updates on the card against the CPU,
+    then on one cluster runtime (b) two IMPALA learners sharing the card
+    syncing over gloo, (c) multi-agent PPO self-play with its learners
+    on the card, (d) PPO on CartPole-v1 where gymnasium is installed."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    out = {"learners": rl_learner_updates(card)}
+    rt.init(mode="cluster", num_cpus=8)
+    try:
+        print("  (b) two IMPALA learners, GPU: 0.5 each, gloo weight sync")
+        out["impala_sync"] = rl_impala_sync(card)
+        print("  (c) MultiAgentPPO self-play, learners on the card")
+        out["multi_agent"] = rl_multi_agent(card)
+        print("  (d) PPO on CartPole-v1, learner on the card")
+        out["cartpole"] = rl_cartpole(card)
+    finally:
+        rt.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [rl] took {out['seconds']:.1f} s")
+    return out
+
+
+def entry_phase(card: str) -> dict:
+    """[entry]: ``ray_tpu_torch.entry.entry()`` (the counterpart of
+    ``__graft_entry__.entry``, GPT-2 at vocab 8192, 4 layers, d_model
+    512, bf16, tokens [2, 128]) on the card: logits of the expected
+    shape, finite, and within the bf16 bound of
+    tests/test_torch_gpt2.py (max 0.05, mean 0.01) of the same weights'
+    forward on the CPU, for the entry's tokens and random ones; the
+    forward's CUDA-event time."""
+    import torch
+
+    from ray_tpu_torch.entry import entry
+
+    fn, (tokens,) = entry()
+    ref, _ = entry(device="cpu")
+    ref.load_state_dict(fn.state_dict())
+    rand = torch.randint(0, fn.cfg.vocab_size, tokens.shape,
+                         generator=torch.Generator().manual_seed(0))
+    errs = []
+    with torch.no_grad():
+        for toks in (tokens.cpu(), rand):
+            got = fn(toks.to(tokens.device)).float().cpu()
+            want = ref(toks).float()
+            if got.shape != (2, 128, 8192) or not torch.isfinite(got).all():
+                raise RuntimeError(f"[entry] logits {got.shape}")
+            err = (got - want).abs()
+            errs.append((float(err.max()), float(err.mean())))
+        ms = cuda_ms(lambda: fn(tokens), 20)
+    print(f"  logits [2, 128, 8192] finite; card vs CPU max/mean |diff| "
+          f"{errs}; forward {ms:.3f} ms (CUDA events, mean of 20; card: "
+          f"{card})")
+    if any(mx >= 0.05 or mean >= 0.01 for mx, mean in errs):
+        raise RuntimeError(f"[entry] card and CPU logits differ: {errs}")
+    return {"max_mean_abs_err": errs, "forward_ms": ms}
+
+
 def _at(tree, name: str):
     for part in name.split("/"):
         tree = tree[part]
@@ -3219,6 +3680,14 @@ def main() -> int:
           "ASHA, two trials sharing the card")
     data["tune"] = tune_phase(card, ds)
     free_device_memory()
+    print("[rl] the RL learners on the card against the CPU, two IMPALA "
+          "learners sharing the card over gloo, multi-agent PPO, PPO on "
+          "CartPole-v1 where gymnasium is installed")
+    rl = rl_phase(card)
+    print("[entry] ray_tpu_torch.entry.entry(): GPT-2 vocab 8192, 4 "
+          "layers, d_model 512, bf16, tokens [2, 128]")
+    rl["entry"] = entry_phase(card)
+    free_device_memory()
 
     serving = []
     for name, phase in (("GPT-2 124M", serve_gpt2),
@@ -3244,6 +3713,7 @@ def main() -> int:
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"data": data}))
     print(json.dumps({"serve_plane": plane}))
+    print(json.dumps({"rl": rl}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

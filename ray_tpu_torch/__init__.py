@@ -38,8 +38,8 @@ from .core.object_ref import ObjectRef  # noqa: F401
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("collective", "data", "device", "dryrun", "llm",
-                    "models", "ops", "parallel", "serve", "train", "tune",
-                    "util")
+                    "models", "ops", "parallel", "rl", "serve", "train",
+                    "tune", "util")
 
 
 def __getattr__(name: str):

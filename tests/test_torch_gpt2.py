@@ -183,3 +183,37 @@ def test_later_slices_raise_not_implemented():
     assert out.shape == (1, 4, 128)
     assert k1.data_ptr() == pool[1].data_ptr()
     assert pool[0, 0].any() and pool[1, 0].any() and not pool[:, 1:].any()
+
+
+def test_graft_entry_logits_match_jax_entry():
+    """``ray_tpu_torch.entry.entry`` against ``__graft_entry__.entry`` on
+    the converted weights: the same configuration, tokens and output
+    shape.  Both run bf16 activations over float32 parameters, so the
+    logits (peak ~2) agree to bf16 rounding: max error 0.05 (a few bf16
+    ulps at the peak), mean error 0.01; at float32 the same models agree
+    to 1e-4 (``test_logits_match_jax``)."""
+    import __graft_entry__
+    from ray_tpu_torch import entry as tentry
+
+    fn, (params, tokens) = __graft_entry__.entry()
+    model, (ttokens,) = tentry.entry(device="cpu")
+    assert ttokens.shape == tokens.shape == (2, 128)
+    assert torch.all(ttokens == 0) and not any(
+        p.requires_grad for p in model.parameters())
+    cfg = tentry.ENTRY_CONFIG
+    assert (cfg.vocab_size, cfg.n_layer, cfg.n_head, cfg.d_model, cfg.d_ff,
+            cfg.max_seq, cfg.attn_impl, cfg.remat, cfg.dtype) == (
+        8192, 4, 8, 512, 2048, 256, "dense", False, torch.bfloat16)
+    model.load_state_dict(gpt2_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params)))
+    fwd = jax.jit(fn)
+    rand = np.random.default_rng(0).integers(0, 8192, (2, 128))
+    for toks in (np.asarray(tokens), rand):
+        want = np.asarray(fwd(params, jnp.asarray(toks, jnp.int32)),
+                          np.float32)
+        with torch.no_grad():
+            got = model(torch.from_numpy(toks).long()).float().numpy()
+        assert got.shape == want.shape == (2, 128, 8192)
+        err = np.abs(got - want)
+        assert err.max() < 0.05 and err.mean() < 0.01, (err.max(),
+                                                        err.mean())

@@ -46,6 +46,13 @@ DATA_TUNE_MODULES = ("data/__init__.py", "data/block.py", "data/context.py",
                      "tune/search.py", "tune/schedulers.py",
                      "tune/tuner.py")
 
+# The RL stack and the graft-entry counterpart.
+RL_MODULES = ("rl/__init__.py", "rl/rl_module.py", "rl/convert.py",
+              "rl/connectors.py", "rl/learner.py", "rl/actor_manager.py",
+              "rl/env_runner.py", "rl/algorithm.py", "rl/multi_agent.py",
+              "rl/impala.py", "rl/dqn.py", "rl/sac.py", "rl/offline.py",
+              "entry.py")
+
 
 def _forbidden(module: str) -> bool:
     return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
@@ -72,7 +79,7 @@ def test_forbidden_matches_whole_prefixes():
                                     "tools/nccl_check_spread.py",
                                     "tests/test_torch_cuda.py",
                                     *(f"ray_tpu_torch/{m}"
-                                      for m in SERVE_MODULES)])
+                                      for m in SERVE_MODULES + RL_MODULES)])
 def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
         else [ROOT / target]
@@ -143,6 +150,10 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.data, ray_tpu_torch.data.dataset\n"
         "import ray_tpu_torch.data.grouped_data, ray_tpu_torch.data.iterator\n"
         "import ray_tpu_torch.tune, ray_tpu_torch.tune.tuner\n"
+        "import ray_tpu_torch.rl, ray_tpu_torch.rl.impala\n"
+        "import ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.sac\n"
+        "import ray_tpu_torch.rl.offline, ray_tpu_torch.rl.multi_agent\n"
+        "import ray_tpu_torch.rl.convert, ray_tpu_torch.entry\n"
         "from ray_tpu_torch.core import serialization\n"
         "serialization.dumps(lambda: 1)\n"
         "grpc = [m for m in sys.modules if m.split('.')[0] == 'grpc']\n"
@@ -182,7 +193,7 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "util/state.py", "train/trainer.py",
                    "train/backend.py", "train/worker_group.py",
                    "train/v2.py", "_vendor/cloudpickle/cloudpickle.py",
-                   *SERVE_MODULES, *DATA_TUNE_MODULES):
+                   *SERVE_MODULES, *DATA_TUNE_MODULES, *RL_MODULES):
         assert module in files
 
 
@@ -205,6 +216,45 @@ def test_data_and_tune_load_no_arrow_pandas_or_cloudpickle():
             "new = set(sys.modules) - before\n"
             "print(sorted(m for m in new if m.split('.')[0] in "
             "('pyarrow', 'pandas', 'cloudpickle', 'jax')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_rl_learners_and_multi_agent_runners_load_no_gymnasium():
+    """The card machine has no gymnasium, pyarrow or cloudpickle: the
+    RL package imports gymnasium only where a gym env is built (the
+    single-agent, DQN and SAC runners, ``record_rollouts``), and parquet
+    only in the data library's reader and writer.  Every learner and a
+    multi-agent runner over a plain ``MultiAgentEnv`` run without them
+    (checked as a delta in a fresh interpreter)."""
+    code = ("import sys\n"
+            "before = set(sys.modules)\n"
+            "import numpy as np\n"
+            "from ray_tpu_torch import rl\n"
+            "class Env(rl.MultiAgentEnv):\n"
+            "    possible_agents = ['a']\n"
+            "    def reset(self, *, seed=None):\n"
+            "        return {'a': np.zeros(3, np.float32)}, {}\n"
+            "    def step(self, actions):\n"
+            "        return ({'a': np.ones(3, np.float32)}, {'a': 1.0},\n"
+            "                {'__all__': False}, {'__all__': False}, {})\n"
+            "spec = rl.RLModuleSpec(3, 2, (8,))\n"
+            "runner = rl.MultiAgentEnvRunner(\n"
+            "    Env, rl.MultiRLModuleSpec({'p': spec}), lambda a: 'p')\n"
+            "runner.set_weights(runner.multi.get_weights())\n"
+            "roll = runner.sample(4)['p']\n"
+            "rl.PPOTorchLearner(spec, device='cpu').update_from_batch(roll)\n"
+            "rl.ImpalaTorchLearner(spec, device='cpu')\n"
+            "rl.DQNTorchLearner(spec, device='cpu')\n"
+            "rl.BCTorchLearner(spec, device='cpu')\n"
+            "rl.SACTorchLearner(rl.ContinuousModuleSpec(3, 1, (8,)),\n"
+            "                   device='cpu')\n"
+            "new = set(sys.modules) - before\n"
+            "print(sorted(m for m in new if m.split('.')[0] in "
+            "('gymnasium', 'pyarrow', 'pandas', 'cloudpickle', 'jax')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
@@ -255,6 +305,8 @@ def test_no_device_means_cuda_or_raise(monkeypatch):
     from ray_tpu_torch.ops.moe import MoEMLP
     from ray_tpu_torch.train.distributed import setup_distributed_mesh
     from ray_tpu_torch.train.session import TrainSession, iter_device_batches
+    from ray_tpu_torch import entry as graft_entry
+    from ray_tpu_torch import rl
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -272,7 +324,18 @@ def test_no_device_means_cuda_or_raise(monkeypatch):
                   lambda: col.init_collective_group(1, 0, backend="nccl"),
                   lambda: iter_device_batches([]),
                   lambda: TrainSession(0, 1, 0, 1, 0, "x")
-                  .iter_device_batches([])):
+                  .iter_device_batches([]),
+                  lambda: rl.TorchRLModule(rl.RLModuleSpec(3, 2)),
+                  lambda: rl.PPOTorchLearner(rl.RLModuleSpec(3, 2)),
+                  lambda: rl.LearnerGroup(rl.RLModuleSpec(3, 2),
+                                          num_learners=2),
+                  lambda: rl.ImpalaTorchLearner(rl.RLModuleSpec(3, 2)),
+                  lambda: rl.DQNTorchLearner(rl.RLModuleSpec(3, 2)),
+                  lambda: rl.BCTorchLearner(rl.RLModuleSpec(3, 2)),
+                  lambda: rl.SACTorchLearner(rl.ContinuousModuleSpec(3, 1)),
+                  lambda: rl.MultiTorchRLModule(rl.MultiRLModuleSpec(
+                      {"p": rl.RLModuleSpec(3, 2)})),
+                  graft_entry.entry):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     assert resolve_device("cpu") == torch.device("cpu")
