@@ -67,8 +67,9 @@ Then the runtime and the trainer (``ray_tpu_torch.core``,
   worker holding the leased GPU, with ``train.report`` every step
   (11 reports, launches 24/12/12 a step, losses within 1e-3 of the main
   path's); at 2 layers a world-2 gloo gang on GPU halves (first loss
-  within 1e-2 of one worker's) and a restart from a checkpoint after a
-  hard exit (losses within 1e-3 of the uninterrupted run).
+  within 1e-2 of the same steps in this process) and a restart from a
+  checkpoint after a hard exit (losses within 1e-3 of the uninterrupted
+  run).
 
 Then the data and tune libraries (``ray_tpu_torch.data``,
 ``ray_tpu_torch.tune``) on the training path:
@@ -87,8 +88,8 @@ Then the data and tune libraries (``ray_tpu_torch.data``,
   worker training on ``train.get_dataset_shard("train")``: 6 reports,
   losses within 1e-3 of ``[data]``'s first 6, launches 24/12/12 a step;
 - ``[tune]``: a ``Tuner`` over a ``TorchTrainer`` at 2 layers, a grid
-  of four rates under ASHA, two trials at a time sharing the card
-  (``GPU: 0.5``): no trial in ERROR, the best result the lowest loss,
+  of four rates under ASHA, all four trials at once sharing the card
+  (``GPU: 0.25``): no trial in ERROR, the best result the lowest loss,
   every worker on GPU id 0, two trials overlapping, no libtorch in the
   runtime's controller or node agent.
 
@@ -133,6 +134,20 @@ doctor and the ``rt`` CLI):
   call of each); ``rt doctor`` without a critical finding, ``rt timeline
   --summary``, and ``rt stop`` leaving no process of the session and no
   pool region (see ``cluster_phase``).
+
+Then the fleet tools (jobs, the ``rt://`` client, the dashboard, the
+autoscaler and launcher, the control-plane benchmarks):
+
+- ``[fleet]``: ``rt job submit --wait`` of a driver whose ``num_gpus=1``
+  actor takes one [main path] step, a job stopped by ``rt job stop``
+  (STOPPED, its process group gone), a driver with no GPU of its own
+  through ``init(address="rt://...")`` taking the step in a task and
+  moving [runtime]'s bf16 tensor through the relay, every dashboard
+  route, the autoscaler launching a GPU node for a pending step and
+  reaping it, ``rt up``/``exec``/``down`` with a GPU worker taking the
+  step, and the quick control-plane benchmarks into a ledger of their
+  own; every step's loss equal to [main path]'s first bit for bit at
+  24/12/12 launches (see ``fleet_phase``).
 
 Then the serving path (``ray_tpu_torch.llm``: the continuous-batching
 engine over the paged KV cache, plain PyTorch, no kernel of its own)
@@ -180,7 +195,8 @@ each serve phase's numbers; one JSON line ``{"runtime": {...}}`` with
 with ``[data]``'s, ``[trainer data]``'s and ``[tune]``'s; one JSON line
 ``{"serve_plane": {...}}`` with ``[serve plane]``'s; one JSON line
 ``{"rl": {...}}`` with ``[rl]``'s and ``[entry]``'s; one JSON line
-``{"cluster": {...}}`` with ``[cluster]``'s; the card's name and power
+``{"cluster": {...}}`` with ``[cluster]``'s; one JSON line
+``{"fleet": {...}}`` with ``[fleet]``'s; the card's name and power
 limit (``nvidia-smi``); and last ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a device-time breakdown of two more training steps, unsharded and sharded (see ``profile_steps``).
 """
@@ -1153,9 +1169,30 @@ def ring_rank(rank: int, world: int, rendezvous: str):
         col.destroy_collective_group("gang")
 
 
+def spawn_worlds(fn, axis: str, worlds=(2, 4)) -> dict:
+    """``dryrun.spawn(fn, world)`` for every world at once, one thread
+    each, so that the groups' processes start together; returns {world:
+    the ranks' results}.  The groups share the card and nothing else
+    (each has its own rendezvous directory)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.dryrun import spawn
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        futures = {w: pool.submit(spawn, fn, w, timeout=300.0)
+                   for w in worlds}
+        runs = {w: f.result() for w, f in futures.items()}
+    print(f"  {axis} = {' and '.join(map(str, worlds))} at once: "
+          f"{sum(worlds)} processes on cuda:0 ran in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def ring_phase(card: str):
-    """[ring] ``seq`` = 2 and 4 processes sharing the card, a gloo group
-    and a ``file://`` rendezvous (``dryrun.spawn``, join timeout 300 s):
+    """[ring] ``seq`` = 2 and 4 processes sharing the card, both groups
+    at once, each a gloo group with a ``file://`` rendezvous
+    (``dryrun.spawn``, join timeout 300 s):
     ring (flash kernels) and Ulysses attention at B4, global T 4096, H12,
     D64, bf16, causal.  The outputs and dQ/dK/dV gathered to rank 0 must
     be as close to the float32 reference as the single-process
@@ -1165,7 +1202,6 @@ def ring_phase(card: str):
     forward, dK/dV and dQ kernels on rank r."""
     import torch
 
-    from ray_tpu_torch.dryrun import spawn
     from ray_tpu_torch.ops import flash_attention
 
     b, t, h, d = RING["b"], RING["t"], RING["h"], RING["d"]
@@ -1186,11 +1222,7 @@ def ring_phase(card: str):
     single = forward_backward(
         lambda *x: flash_attention(*x, causal=True), q, k, v)
     torch.cuda.synchronize()
-    for world in (2, 4):
-        t0 = time.perf_counter()
-        runs = spawn(ring_rank, world, timeout=300.0)
-        print(f"  seq={world}: {world} processes on cuda:0 ran in "
-              f"{time.perf_counter() - t0:.1f} s")
+    for world, runs in spawn_worlds(ring_rank, "seq").items():
         for kind in ("ring", "ulysses"):
             for rank, run in enumerate(runs):
                 counts = run[kind]["launches"]
@@ -1472,8 +1504,8 @@ def pipeline_inputs(cfg):
 
 
 def pipeline_phase(card: str):
-    """[pipeline] S = 2 and 4 processes sharing the card (``dryrun.spawn``,
-    gloo, join timeout 300 s), each a stage of 12/S GPT-2 124M blocks,
+    """[pipeline] S = 2 and 4 processes sharing the card, both groups at
+    once (``dryrun.spawn``, gloo, join timeout 300 s), each a stage of 12/S GPT-2 124M blocks,
     B16 T1024 hidden states in M = 8 microbatches.  The output, the
     input gradient and every parameter gradient gathered to rank 0 must
     be as close to the float32 run of the 12 blocks in sequence (dense
@@ -1484,7 +1516,6 @@ def pipeline_phase(card: str):
     recomputation) and (M + S - 1) 12/S of each backward kernel."""
     import torch
 
-    from ray_tpu_torch.dryrun import spawn
     from ray_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
 
     cfg = GPT2Config(**GPT2_124M, remat=False, attn_impl="flash")
@@ -1506,11 +1537,7 @@ def pipeline_phase(card: str):
     seq, ref = sequential(cfg), sequential(ref_cfg)
     free_device_memory()
     m = PIPE["microbatches"]
-    for world in (2, 4):
-        t0 = time.perf_counter()
-        runs = spawn(pipeline_rank, world, timeout=300.0)
-        print(f"  S={world}: {world} processes on cuda:0 ran in "
-              f"{time.perf_counter() - t0:.1f} s")
+    for world, runs in spawn_worlds(pipeline_rank, "S").items():
         ticks = (m + world - 1) * cfg.n_layer // world
         want = {"flash_fwd": 2 * ticks, "flash_dkv": ticks,
                 "flash_dq": ticks}
@@ -1863,9 +1890,9 @@ def trainer_loop(config):
     unsharded step; a gang of several runs the sharded step
     data-parallel over the gang (``MeshSpec(data=world)``; each rank
     takes its half of the batch).  With ``config["crash_at"]`` it saves
-    a checkpoint every step and rank 0 exits hard after that step's
-    checkpoint, once; a restarted attempt resumes from the latest
-    checkpoint.  Each report carries the step's device ms (CUDA events
+    a checkpoint at that step and the one before, and rank 0 exits hard
+    after that step's checkpoint, once; a restarted attempt resumes from
+    the latest checkpoint.  Each report carries the step's device ms (CUDA events
     around the step) and the previous report's round trip; the last one
     also the flash launches counted in this worker."""
     import os
@@ -1905,7 +1932,8 @@ def trainer_loop(config):
         if i + 1 == config["steps"]:
             metrics["launches"] = dict(_kernels.launches)
         checkpoint = None
-        if config.get("crash_at"):
+        crash_at = config.get("crash_at")
+        if crash_at and i + 1 in (crash_at - 1, crash_at):
             with train.checkpoint_dir() as d:
                 checkpoint = train.Checkpoint(d)
                 checkpoint.save_pytree(
@@ -1913,11 +1941,24 @@ def trainer_loop(config):
         t0 = time.perf_counter()
         train.report(metrics, checkpoint=checkpoint)
         report_ms = 1e3 * (time.perf_counter() - t0)
-        if i + 1 == config.get("crash_at") and train.get_world_rank() == 0 \
+        if i + 1 == crash_at and train.get_world_rank() == 0 \
                 and not os.path.exists(config["marker"]):
             open(config["marker"], "w").close()
             os._exit(1)
     return True
+
+
+def depth2_losses(steps: int) -> list:
+    """[trainer]'s reference: the [main path] configuration at 2 layers,
+    ``steps`` steps in this process, as one trainer worker runs them."""
+    cfg, state, step, data = main_path_parts(2)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, data)
+        losses.append(float(m["loss"]))
+    del state
+    free_device_memory()
+    return losses
 
 
 def fit(config, storage: str, name: str, *, workers: int = 1,
@@ -1950,7 +1991,7 @@ def trainer_phase(card: str, unsharded: dict) -> dict:
     path]'s (the largest difference printed; bit-equal expected).
     Printed, not gated: the worker's CUDA-event step median beside
     [main path]'s, the report round trip, the gang's start.  Then, at
-    full width and 2 layers, 1 + 5 steps: one worker (the reference), a
+    full width and 2 layers, 1 + 5 steps: this process (the reference), a
     world-2 gang of ``{"CPU": 1, "GPU": 0.5}`` workers over gloo (one
     card cannot hold two NCCL ranks) whose first loss must be within
     1e-2 of the reference's, and one worker whose rank 0 exits after its
@@ -2000,13 +2041,12 @@ def trainer_phase(card: str, unsharded: dict) -> dict:
                        step_median_ms=step_ms, report_ms=report_ms,
                        loss_gap=gap)
 
-            ref, _s = fit({"n_layer": 2, "steps": 6}, storage, "ref2")
-            ref = [h["metrics"]["loss"] for h in ref.metrics_history]
+            ref = depth2_losses(6)
             pair, secs2 = fit({"n_layer": 2, "steps": 6}, storage, "world2",
                               workers=2, resources={"CPU": 1, "GPU": 0.5})
             pair = [h["metrics"] for h in pair.metrics_history]
             gap2 = abs(pair[0]["loss"] - ref[0])
-            print(f"  depth 2: one worker {ref}")
+            print(f"  depth 2: this process {ref}")
             print(f"  world-2 gloo gang (GPU 0.5 each, {secs2:.3f} s): "
                   f"{[h['loss'] for h in pair]}; first-loss gap {gap2:.3e} "
                   f"(limit 1e-2)")
@@ -2327,15 +2367,16 @@ def trainer_data_phase(card: str, ds, losses) -> dict:
     return {"loss_gap": gap, "seconds": seconds}
 
 
-TUNE = dict(n_layer=2, steps=8, lrs=[1e-4, 3e-4, 1e-3, 3e-3])
+TUNE = dict(n_layer=2, steps=8, lrs=[1e-4, 3e-4, 1e-3, 3e-3], concurrent=4)
 
 
 def tune_phase(card: str, ds) -> dict:
     """[tune] a ``Tuner`` over a ``TorchTrainer`` at GPT-2 124M widths
-    with 2 layers: ``grid_search`` over four peak rates, two trials at a
-    time under ``ASHAScheduler(max_t=8, grace_period=2)``, each trial a
-    one-worker trainer (``{"CPU": 1, "GPU": 0.5}``, so two share the
-    card) running 8 steps on [data]'s dataset and reporting the loss
+    with 2 layers: ``grid_search`` over four peak rates, all four trials
+    at once under ``ASHAScheduler(max_t=8, grace_period=2)``, each trial
+    a one-worker trainer (``{"CPU": 1, "GPU": 0.25}``, so four share the
+    card; 12 logical CPUs hold the trial actors, the workers and the
+    dataset's block tasks) running 8 steps on [data]'s dataset and reporting the loss
     each step; the trainer's loop config holds a ``torch.bfloat16``.
     Checks: every trial ends TERMINATED or STOPPED, none ERROR;
     ``get_best_result()`` is the trial with the lowest last loss; every
@@ -2351,7 +2392,7 @@ def tune_phase(card: str, ds) -> dict:
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
 
     t_phase = time.perf_counter()
-    rt.init(mode="cluster", num_cpus=8)
+    rt.init(mode="cluster", num_cpus=12)
     try:
         with tempfile.TemporaryDirectory() as storage:
             trainer = TorchTrainer(
@@ -2362,14 +2403,16 @@ def tune_phase(card: str, ds) -> dict:
                                    "dtype": torch.bfloat16},
                 scaling_config=ScalingConfig(
                     num_workers=1,
-                    resources_per_worker={"CPU": 1, "GPU": 0.5}),
+                    resources_per_worker={
+                        "CPU": 1, "GPU": 1 / TUNE["concurrent"]}),
                 run_config=RunConfig(name="tuned", storage_path=storage),
                 datasets={"train": ds})
             grid = tune.Tuner(
                 trainer,
                 param_space={"lr": tune.grid_search(TUNE["lrs"])},
                 tune_config=tune.TuneConfig(
-                    metric="loss", mode="min", max_concurrent_trials=2,
+                    metric="loss", mode="min",
+                    max_concurrent_trials=TUNE["concurrent"],
                     scheduler=tune.ASHAScheduler(
                         max_t=TUNE["steps"], grace_period=2))).fit()
         plane = control_plane_torch()
@@ -3229,6 +3272,610 @@ def cluster_phase(card: str, unsharded: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ fleet
+FLEET_LAUNCHES = {"flash_fwd": 24, "flash_dkv": 12, "flash_dq": 12}
+# The autoscaled node's idle timeout (s): long enough for the head to
+# see the finished step's lease return, short enough not to idle.
+FLEET_IDLE_S = 5
+
+# The JSON shape of each dashboard route (the JAX package's create_app):
+# top-level keys that must be there, or "list" for a list of records.
+DASHBOARD_ROUTES = {
+    "/": None, "/api/nodes": "list", "/api/actors": "list",
+    "/api/tasks": "list", "/api/jobs": {"jobs", "drivers"},
+    "/api/objects": "list", "/api/logs": "list",
+    "/api/logs?pid={pid}": None, "/api/stack?pid={pid}": None,
+    "/api/profile?pid={pid}&duration=0.5": None,
+    "/api/doctor": {"healthy", "findings"},
+    "/api/perf": {"peaks"}, "/api/hotpath": {"count"},
+    "/api/telemetry": {"goodput", "train", "collectives", "serve",
+                       "flight"},
+    "/api/timeline": "list", "/api/timeline?summary=1": {"steps"},
+    "/api/slo": {"objectives"}, "/api/trace": {"exemplars"},
+    "/api/timeseries": None, "/metrics": None, "/timeseries": None}
+
+
+def fleet_step() -> dict:
+    """One [main path] step in this process, on the card its lease
+    gave it: the loss, the kernels' launches, where the model lives."""
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+
+    started = time.time()
+    cfg, state, step, data = main_path_parts()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    state, m = step(state, data)
+    torch.cuda.synchronize()
+    return {"loss": float(m["loss"]), "launches": dict(_kernels.launches),
+            "device": str(next(state.model.parameters()).device),
+            "name": torch.cuda.get_device_name(0),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "pid": os.getpid(), "started": started, "ended": time.time()}
+
+
+class FleetStepper:
+    """The job's ``num_gpus=1`` actor."""
+
+    def step(self):
+        return fleet_step()
+
+
+def fleet_step_and_bf16():
+    """``fleet_step``, and [runtime]'s bf16 tensor made on the same
+    card (it leaves the worker as host memory)."""
+    return fleet_step(), seeded_bf16(11)
+
+
+def check_step(got: dict, unsharded: dict, what: str) -> None:
+    """A fleet step ran on the card, through the kernels, and its loss
+    is [main path]'s first loss bit for bit."""
+    print(f"  {what}: loss {got['loss']!r} ([main path] first loss "
+          f"{unsharded['first_loss']!r}), launches {got['launches']}, "
+          f"model on {got['device']} ({got['name']}), "
+          f"CUDA_VISIBLE_DEVICES={got['visible']}, pid {got['pid']}")
+    if not got["device"].startswith("cuda"):
+        raise RuntimeError(f"[fleet] {what} ran on {got['device']}")
+    if got["launches"] != FLEET_LAUNCHES:
+        raise RuntimeError(f"[fleet] {what}: launches {got['launches']}")
+    if got["loss"] != unsharded["first_loss"]:
+        raise RuntimeError(f"[fleet] {what}: loss {got['loss']!r} is not "
+                           f"[main path]'s {unsharded['first_loss']!r}")
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def maps_libtorch(pid: int) -> bool:
+    """Whether a live process has libtorch mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return "libtorch" in f.read()
+
+
+def session_pids(session: str) -> list:
+    """Live processes whose command line names ``session``."""
+    out = subprocess.run(["pgrep", "-f", f"--session {session}"],
+                         capture_output=True, text=True, timeout=30)
+    return [int(p) for p in out.stdout.split() if alive(int(p))]
+
+
+def http_get(port: int, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def fleet_jobs(card: str, env: dict, root: str, unsharded: dict,
+               out: dict) -> None:
+    """(1) a job whose entrypoint drives a ``num_gpus=1`` actor through
+    one main-path step, and a second job stopped while it sleeps."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    module = os.path.splitext(os.path.basename(__file__))[0]
+    entry = os.path.join(root, "job_entry.py")
+    with open(entry, "w") as f:
+        f.write(
+            "import json, os, sys\n"
+            f"sys.path.insert(0, {here!r})\n"
+            f"import {module} as smoke\n"
+            "import ray_tpu_torch as rt\n"
+            "print('entrypoint CUDA_VISIBLE_DEVICES=[%s]' % "
+            "os.environ.get('CUDA_VISIBLE_DEVICES'), flush=True)\n"
+            "rt.init(address='auto')\n"
+            "actor = rt.remote(num_gpus=1)(smoke.FleetStepper).remote()\n"
+            "got = rt.get(actor.step.remote(), timeout=600)\n"
+            "rt.kill(actor)\n"
+            "print('FLEET_JOB ' + json.dumps(got), flush=True)\n")
+    t0 = time.perf_counter()
+    r = rt_cli(env, "job", "submit", "--wait", "--id", "fleet-step",
+               "--timeout", "600", "--", sys.executable, entry,
+               timeout=700)
+    out["job_succeeded_s"] = time.perf_counter() - t0
+    print(f"  rt job submit --wait: exit {r.returncode} in "
+          f"{out['job_succeeded_s']:.3f} s (host clock; card: "
+          f"{card})\n    "
+          + r.stdout.strip().replace("\n", "\n    "))
+    if r.returncode != 0 or "Job fleet-step: SUCCEEDED" not in r.stdout:
+        raise RuntimeError(f"[fleet] job: {r.stdout}{r.stderr}")
+    logs = rt_cli(env, "job", "logs", "fleet-step")
+    logs_job = rt_cli(env, "logs", "--job", "fleet-step")
+    if logs.returncode or logs.stdout != logs_job.stdout:
+        raise RuntimeError(f"[fleet] rt logs --job differs: "
+                           f"{logs.stdout!r} {logs_job.stdout!r}")
+    if "entrypoint CUDA_VISIBLE_DEVICES=[]" not in logs.stdout:
+        raise RuntimeError("[fleet] the job's entrypoint saw a GPU")
+    line = [ln for ln in logs.stdout.splitlines()
+            if ln.startswith("FLEET_JOB ")]
+    got = json.loads(line[0][len("FLEET_JOB "):])
+    check_step(got, unsharded, "job's num_gpus=1 actor")
+
+    r = rt_cli(env, "job", "submit", "--id", "fleet-sleep", "--",
+               "echo FLEET_PGID=$$; exec sleep 600")
+    if r.returncode != 0:
+        raise RuntimeError(f"[fleet] submit: {r.stderr}")
+    deadline = time.monotonic() + 60
+    pgid = None
+    while pgid is None:
+        text = rt_cli(env, "job", "logs", "fleet-sleep").stdout
+        found = [ln for ln in text.splitlines()
+                 if ln.startswith("FLEET_PGID=")]
+        if found:
+            pgid = int(found[0].split("=")[1])
+        elif time.monotonic() > deadline:
+            raise RuntimeError("[fleet] the sleeping job never ran")
+        else:
+            time.sleep(0.1)
+    t0 = time.perf_counter()
+    r = rt_cli(env, "job", "stop", "fleet-sleep")
+    while "STOPPED" not in rt_cli(env, "job", "status",
+                                  "fleet-sleep").stdout:
+        if time.perf_counter() - t0 > 60:
+            raise RuntimeError("[fleet] the job never reached STOPPED")
+        time.sleep(0.1)
+    out["job_stopped_s"] = time.perf_counter() - t0
+    try:
+        os.killpg(pgid, 0)
+        group = "alive"
+    except ProcessLookupError:
+        group = "gone"
+    listed = rt_cli(env, "job", "list").stdout
+    print(f"  rt job stop: {r.stdout.strip()}; STOPPED in "
+          f"{out['job_stopped_s']:.3f} s; process group {pgid} {group}; "
+          f"rt job list:\n    " + listed.strip().replace("\n", "\n    "))
+    if group != "gone" or "fleet-step  SUCCEEDED" not in listed \
+            or "fleet-sleep  STOPPED" not in listed:
+        raise RuntimeError(f"[fleet] stop left group {group}: {listed}")
+
+
+def fleet_client(card: str, env: dict, client_addr: str, unsharded: dict,
+                 out: dict) -> None:
+    """(2) a driver in a process that sees no GPU, through rt://."""
+    import hashlib
+    import os
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    module = os.path.splitext(os.path.basename(__file__))[0]
+    code = (
+        "import hashlib, json, sys, time\n"
+        f"sys.path.insert(0, {here!r})\n"
+        f"import {module} as smoke\n"
+        "import torch\n"
+        "import ray_tpu_torch as rt\n"
+        "t0 = time.perf_counter()\n"
+        f"rt.init(address={client_addr!r})\n"
+        "out = {'connect_s': time.perf_counter() - t0,\n"
+        "       'cuda_here': torch.cuda.is_available()}\n"
+        "t0 = time.perf_counter()\n"
+        "out['step'], host = rt.get(rt.remote(num_gpus=1)(\n"
+        "    smoke.fleet_step_and_bf16).remote(), timeout=600)\n"
+        "out['task_s'] = time.perf_counter() - t0\n"
+        "t0 = time.perf_counter()\n"
+        "ref = rt.put(host)\n"
+        "out['put_s'] = time.perf_counter() - t0\n"
+        "t0 = time.perf_counter()\n"
+        "back = rt.get(ref, timeout=600)\n"
+        "out['get_s'] = time.perf_counter() - t0\n"
+        "out['bytes'] = host.numel() * host.element_size()\n"
+        "out['equal'] = torch.equal(back.view(torch.int16),\n"
+        "                           host.view(torch.int16))\n"
+        "out['dtype'] = str(back.dtype)\n"
+        "out['sha256'] = hashlib.sha256(host.view(torch.int16).numpy()"
+        ".tobytes()).hexdigest()\n"
+        "rt.shutdown()\n"
+        "print('FLEET_CLIENT ' + json.dumps(out), flush=True)\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=900,
+                       env=dict(env, CUDA_VISIBLE_DEVICES=""))
+    wall = time.perf_counter() - t0
+    line = [ln for ln in r.stdout.splitlines()
+            if ln.startswith("FLEET_CLIENT ")]
+    if r.returncode != 0 or not line:
+        raise RuntimeError(f"[fleet] rt:// driver: {r.stdout}{r.stderr}")
+    got = json.loads(line[0][len("FLEET_CLIENT "):])
+    check_step(got["step"], unsharded, "rt:// driver's num_gpus=1 task")
+    want = hashlib.sha256(seeded_bf16(11).cpu().view(torch.int16).numpy()
+                          .tobytes()).hexdigest()
+    put_gb_s = got["bytes"] / got["put_s"] / 1e9
+    get_gb_s = got["bytes"] / got["get_s"] / 1e9
+    print(f"  rt:// driver (CUDA_VISIBLE_DEVICES='', CUDA available there: "
+          f"{got['cuda_here']}): connect {got['connect_s']:.3f} s, the "
+          f"task's round trip {got['task_s']:.3f} s (worker and CUDA start, "
+          f"the step, the tensor back through the relay), bf16 tensor {got['bytes'] / 1e6:.1f} MB "
+          f"({got['dtype']}) equal to [runtime]'s: "
+          f"{got['sha256'] == want}, put {put_gb_s:.3f} GB/s, get "
+          f"{get_gb_s:.3f} GB/s through the relay, back bit-equal: "
+          f"{got['equal']}; the process {wall:.3f} s (host clock; card: "
+          f"{card})")
+    if got["cuda_here"] or not got["equal"] or got["sha256"] != want:
+        raise RuntimeError(f"[fleet] rt:// tensor: {got}")
+    out["client"] = {"connect_s": got["connect_s"],
+                     "task_s": got["task_s"], "put_gb_s": put_gb_s,
+                     "get_gb_s": get_gb_s}
+
+
+def fleet_dashboard(card: str, env: dict, address: str, pids: list,
+                    out: dict) -> None:
+    """(3) the dashboard over the head: every route, its JSON shape,
+    the GPU, the two jobs' terminal states, the rt_ series."""
+    from ray_tpu_torch.util import state as rt_state
+
+    workers = []
+    for n in rt_state.list_nodes(address=address):
+        listed = rt_state._agent_call(n["agent_addr"], "list_workers")
+        workers += [w["pid"] for w in listed["workers"]
+                    if w.get("pid") and alive(w["pid"])]
+    pids += workers
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "dashboard", "--address",
+         address, "--port", str(port)], env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                if http_get(port, "/")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise RuntimeError("[fleet] the dashboard never answered")
+            time.sleep(0.1)
+        ms, bodies = [], {}
+        for route, shape in DASHBOARD_ROUTES.items():
+            path = route.format(pid=workers[0])
+            t0 = time.perf_counter()
+            code, body = http_get(port, path)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            bodies[route] = body
+            if code != 200:
+                raise RuntimeError(f"[fleet] dashboard {path}: {code} "
+                                   f"{body[:300]!r}")
+            if shape is not None:
+                data = json.loads(body)
+                ok = isinstance(data, list) if shape == "list" \
+                    else isinstance(data, dict) and shape <= set(data)
+                if not ok:
+                    raise RuntimeError(f"[fleet] dashboard {path}: shape "
+                                       f"{str(data)[:300]}")
+        if http_get(port, "/api/nope")[0] != 404:
+            raise RuntimeError("[fleet] dashboard: no 404")
+        torch_mapped = maps_libtorch(proc.pid)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    nodes = json.loads(bodies["/api/nodes"])
+    jobs = {j["job_id"]: j["state"]
+            for j in json.loads(bodies["/api/jobs"])["jobs"]}
+    metrics = bodies["/metrics"].decode()
+    series = sorted({ln.split("{")[0].split(" ")[0]
+                     for ln in metrics.splitlines()
+                     if ln.startswith("rt_")})
+    out["dashboard_ms"] = median(ms)
+    print(f"  dashboard: {len(DASHBOARD_ROUTES)} routes answer 200 with "
+          f"JAX's shape, median {out['dashboard_ms']:.3f} ms a request, "
+          f"max {max(ms):.3f} ms (host clock; card: {card}); "
+          f"nodes GPU {[n['resources'].get('GPU') for n in nodes]}, jobs "
+          f"{jobs}, {len(series)} rt_ series in /metrics; libtorch mapped "
+          f"in the dashboard process: {torch_mapped}")
+    if [n["resources"].get("GPU") for n in nodes] != [1.0] \
+            or jobs != {"fleet-step": "SUCCEEDED",
+                        "fleet-sleep": "STOPPED"} \
+            or not series or torch_mapped:
+        raise RuntimeError(f"[fleet] dashboard: {nodes} {jobs} {series}")
+
+
+def fleet_autoscaler(card: str, unsharded: dict, out: dict) -> None:
+    """(4) the autoscaler launches a GPU node for a pending step and
+    reaps it once idle."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import AutoscalingCluster, NodeType
+
+    c = AutoscalingCluster(
+        node_types=[NodeType("gpu", {"CPU": 2, "GPU": 1}, max_workers=1)],
+        head_resources={"CPU": 1, "GPU": 0}, idle_timeout_s=FLEET_IDLE_S)
+    pids = [p.pid for p in c._procs]
+    try:
+        rt.init(address=c.address)
+        try:
+            head_gpu = rt.cluster_resources().get("GPU", 0.0)
+            t0 = time.time()
+            ref = rt.remote(num_gpus=1)(fleet_step).remote()
+            got = rt.get(ref, timeout=600)
+            done = time.time()
+            launched = list(c.provider.non_terminated_nodes())
+            pids += [c.provider._nodes[p][0].pid for p in launched]
+        finally:
+            rt.shutdown()
+        check_step(got, unsharded, "autoscaled node's num_gpus=1 task")
+        pending_s = got["started"] - t0
+        while c.provider.non_terminated_nodes():
+            if time.time() - done > 120:
+                raise RuntimeError("[fleet] the idle node was not reaped")
+            time.sleep(0.2)
+        reaped_s = time.time() - got["ended"]
+    finally:
+        c.shutdown()
+    decisions = [(d["launched"], d["terminated"])
+                 for d in c.autoscaler.decisions]
+    out["autoscaler"] = {"pending_to_running_s": pending_s,
+                         "idle_to_reaped_s": reaped_s}
+    print(f"  autoscaler: head GPU {head_gpu}, launched {launched}; "
+          f"pending to running {pending_s:.3f} s (agent start, worker "
+          f"and CUDA start), idle to reaped {reaped_s:.3f} s (idle "
+          f"timeout {FLEET_IDLE_S} s); decisions {decisions} (host clock; "
+          f"card: {card})")
+    if head_gpu or len(launched) != 1 or got["visible"] != "0":
+        raise RuntimeError(f"[fleet] autoscaler: {head_gpu} {launched} "
+                           f"{got['visible']}")
+    deadline = time.monotonic() + 30
+    while [p for p in pids if alive(p)] and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if [p for p in pids if alive(p)]:
+        raise RuntimeError(f"[fleet] autoscaler left "
+                           f"{[p for p in pids if alive(p)]}")
+    os.environ.pop("RT_AUTOSCALING_ENABLED", None)
+
+
+def fleet_up(card: str, env: dict, root: str, unsharded: dict,
+             out: dict) -> None:
+    """(5) rt up / rt exec / rt down with the subprocess provider."""
+    import os
+
+    import ray_tpu_torch as rt
+
+    spec = {
+        "cluster_name": "fleet",
+        "provider": {"type": "subprocess", "head_port": 0},
+        "head_node_type": "head",
+        "available_node_types": {
+            "head": {"resources": {"CPU": 1, "GPU": 0}},
+            "gpu": {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 1,
+                    "max_workers": 1}},
+        "head_start_command": f"{sys.executable} -m ray_tpu_torch."
+                              "scripts.cli start --head --port {port} "
+                              "--resources {resources}",
+        "worker_start_command": f"{sys.executable} -m ray_tpu_torch."
+                                "scripts.cli start --address {address} "
+                                "--resources {resources}",
+        "env": {"PYTHONPATH": env["PYTHONPATH"]}}
+    path = os.path.join(root, "fleet.yaml")
+    with open(path, "w") as f:
+        json.dump(spec, f)     # JSON is YAML
+    t0 = time.perf_counter()
+    r = rt_cli(env, "up", path, timeout=300)
+    up_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"[fleet] rt up: {r.stdout}{r.stderr}")
+    trailer = dict(ln.split("=", 1) for ln in r.stdout.splitlines()
+                   if ln.startswith("RT_"))
+    address = trailer["RT_ADDRESS"]
+    session = [ln.split(":", 1)[1].strip() for ln in r.stdout.splitlines()
+               if ln.strip().startswith("session:")][0]
+    try:
+        ex = rt_cli(env, "exec", path, "--all-nodes",
+                    f"{sys.executable} -c 'import torch; print(\"DEVICES\", "
+                    "torch.cuda.device_count())'", timeout=300)
+        devices = [ln for ln in ex.stdout.splitlines()
+                   if ln.startswith("DEVICES")]
+        rt.init(address=address)
+        try:
+            gpus = sorted(n["Resources"].get("GPU", 0.0)
+                          for n in rt.nodes() if n["Alive"])
+            got = rt.get(rt.remote(num_gpus=1)(fleet_step).remote(),
+                         timeout=600)
+        finally:
+            rt.shutdown()
+    finally:
+        t0 = time.perf_counter()
+        down = rt_cli(env, "down", path, timeout=300)
+        down_s = time.perf_counter() - t0
+    print(f"  rt up {up_s:.3f} s: {r.stdout.splitlines()[0]}; nodes GPU "
+          f"{gpus}; rt exec --all-nodes: {devices}; rt down "
+          f"{down_s:.3f} s: {down.stdout.strip()} (host clock; card: "
+          f"{card})")
+    if ex.returncode != 0 or devices[-1:] != ["DEVICES 1"] \
+            or gpus != [0.0, 1.0]:
+        raise RuntimeError(f"[fleet] rt up cluster: {gpus} {ex.stdout}")
+    check_step(got, unsharded, "rt up worker's num_gpus=1 task")
+    deadline = time.monotonic() + 30
+    while session_pids(session) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    if down.returncode != 0 or session_pids(session):
+        raise RuntimeError(f"[fleet] rt down left {session_pids(session)}")
+    out["up"] = {"up_s": up_s, "down_s": down_s}
+
+
+def fleet_benchmarks(card: str, root: str, out: dict) -> None:
+    """(6) the control-plane benchmarks on a fresh cluster, recorded
+    into a ledger of their own; a planted half-rate row shows the
+    regression gate fires."""
+    import os
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import microbenchmark, perf_ledger, scale_bench
+
+    ledger = os.path.join(root, "ledger.jsonl")
+    rt.init(mode="cluster", num_cpus=2)
+    try:
+        micro = microbenchmark.run(quick=True)
+        scale = scale_bench.run(quick=True)
+    finally:
+        rt.shutdown()
+    perf_ledger.record([{"benchmark": r["benchmark"], "value": r["per_sec"],
+                         "unit": "ops/s"} for r in micro],
+                       source="micro_quick", path=ledger)
+    perf_ledger.record(scale, source="scale", path=ledger)
+    problems = perf_ledger.check_regressions(ledger)
+    rows = perf_ledger.load(ledger)
+    for r in rows:
+        print(f"  {r['source']}/{r['benchmark']}: {r['value']} {r['unit']}")
+    print(f"  ledger {len(rows)} rows, floors {perf_ledger.FLOORS}, "
+          f"regressions {problems} (host clock; card: {card})")
+    if problems or perf_ledger.FLOORS or len(micro) != 6 or not scale:
+        raise RuntimeError(f"[fleet] benchmarks: {problems}")
+    # With one record a metric and no floor the gate above judges
+    # nothing; a copy of the ledger with the first row recorded again at
+    # half its rate must be flagged, and only that row.
+    planted = os.path.join(root, "planted.jsonl")
+    shutil.copyfile(ledger, planted)
+    slow = rows[0]
+    perf_ledger.record([{"benchmark": slow["benchmark"],
+                         "value": slow["value"] / 2, "unit": slow["unit"]}],
+                       source=slow["source"], path=planted)
+    fired = perf_ledger.check_regressions(planted)
+    print(f"  planted half-rate {slow['source']}/{slow['benchmark']}: "
+          f"{fired}")
+    if len(fired) != 1 or slow["benchmark"] not in fired[0]:
+        raise RuntimeError(f"[fleet] the regression gate missed a planted "
+                           f"half-rate row: {fired}")
+    out["benchmarks"] = {f"{r['source']}/{r['benchmark']}": r["value"]
+                         for r in rows}
+
+
+def fleet_phase(card: str, unsharded: dict) -> dict:
+    """[fleet] The operator's fleet tools, each driving the main path's
+    step on the card: (1) ``rt start --head --client-server-port`` (the
+    head detects ``GPU: 1``); ``rt job submit --wait`` of an entrypoint
+    that calls ``init(address="auto")`` and takes one [main path] step
+    in a ``num_gpus=1`` actor (the entrypoint itself sees no GPU: the
+    supervisor's lease holds none); ``rt job logs`` and ``rt logs --job``
+    show the same lines; a second job stopped by ``rt job stop`` reaches
+    STOPPED with its process group gone; ``rt job list`` shows both.
+    (2) a driver in a process with ``CUDA_VISIBLE_DEVICES=""`` connects
+    with ``init(address="rt://...")``, takes the step in a ``num_gpus=1``
+    task and moves [runtime]'s bf16 tensor through the relay bit for
+    bit.  (3) ``python -m ray_tpu_torch dashboard``: every route answers
+    200 with the JAX package's shape, ``/api/nodes`` shows the GPU,
+    ``/api/jobs`` both jobs' terminal states, ``/metrics`` rt_ series;
+    no libtorch in the dashboard or the client server; ``rt stop``
+    leaves no process.  (4) ``AutoscalingCluster`` with a CPU head
+    launches a ``{"CPU": 2, "GPU": 1}`` node for a pending step and
+    reaps it after its idle timeout.  (5) ``rt up`` / ``rt exec
+    --all-nodes`` / ``rt down`` with ``provider.type: subprocess``: a
+    CPU head and one GPU worker take the step, and nothing is left.
+    (6) the quick microbenchmark and scale-bench rows on a fresh
+    cluster, recorded into a ledger of their own, with no regression
+    and no floor.  Every step's loss equals [main path]'s first loss bit
+    for bit at 24/12/12 launches.  Every gate raises."""
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    out = {}
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rt_fleet_")
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(
+        rt.__file__)))
+    env = dict(os.environ, RT_SESSION_DIR_ROOT=root,
+               PYTHONPATH=os.pathsep.join(
+                   [checkout] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    env.pop("RT_ADDRESS", None)
+    saved = os.environ.get("RT_SESSION_DIR_ROOT")
+    os.environ["RT_SESSION_DIR_ROOT"] = root
+    pids, session, stopped = [], None, False
+    try:
+        # (1) the head with its rt:// listener, then the jobs.
+        r = rt_cli(env, "start", "--head", "--port", "0",
+                   "--client-server-port", str(free_port()))
+        if r.returncode != 0:
+            raise RuntimeError(f"[fleet] rt start: {r.stderr}{r.stdout}")
+        trailer = dict(ln.split("=", 1) for ln in r.stdout.splitlines()
+                       if ln.startswith("RT_"))
+        pids = [int(p) for p in trailer["RT_PIDS"].split(",")]
+        session, address = trailer["RT_SESSION"], trailer["RT_ADDRESS"]
+        client_addr = [ln.split('"')[1] for ln in r.stdout.splitlines()
+                       if 'address="rt://' in ln][0]
+        status = rt_cli(env, "status").stdout
+        print(f"  rt start --head --client-server-port: {address}, "
+              f"{client_addr}; GPU=1 in rt status: {'GPU=1' in status}")
+        if "GPU=1" not in status or len(pids) != 3:
+            raise RuntimeError(f"[fleet] head: {status} {pids}")
+        fleet_jobs(card, env, root, unsharded, out)
+        # (2) the rt:// driver; (3) the dashboard; then stop the head.
+        fleet_client(card, env, client_addr, unsharded, out)
+        client_server_torch = maps_libtorch(pids[2])
+        print(f"  libtorch mapped in the client server: "
+              f"{client_server_torch}")
+        if client_server_torch:
+            raise RuntimeError("[fleet] the client server loaded torch")
+        fleet_dashboard(card, env, address, pids, out)
+        stop = rt_cli(env, "stop")
+        stopped = True
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (
+                [p for p in pids if alive(p)] or session_pids(session)):
+            time.sleep(0.2)
+        left = [p for p in pids if alive(p)] + session_pids(session)
+        print(f"  rt stop: {stop.stdout.strip()}; session processes left "
+              f"{left}")
+        if stop.returncode != 0 or left:
+            raise RuntimeError(f"[fleet] rt stop left {left}")
+        # (4) the autoscaler; (5) rt up; (6) the benchmarks.
+        fleet_autoscaler(card, unsharded, out)
+        fleet_up(card, env, root, unsharded, out)
+        fleet_benchmarks(card, root, out)
+    finally:
+        if not stopped and session is not None:
+            rt_cli(env, "stop")
+        if saved is None:
+            os.environ.pop("RT_SESSION_DIR_ROOT", None)
+        else:
+            os.environ["RT_SESSION_DIR_ROOT"] = saved
+        os.environ.pop("RT_AUTOSCALING_ENABLED", None)
+    shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  [fleet] {out['wall_s']:.3f} s (card: {card})")
+    return out
+
+
 def alive(pid: int) -> bool:
     """A process that exists and is no zombie."""
     import os
@@ -3983,6 +4630,34 @@ def serve_plane(card: str, in_process: dict):
     return out
 
 
+class PhaseClock:
+    """Each phase's wall time.  ``start`` prints a phase's header and
+    closes the phase before it; the start also goes to stderr, with the
+    seconds since the first phase, so that a run stopped at its time
+    limit shows in its stderr where it was."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.name = None
+        self.walls = {}
+
+    def start(self, header: str) -> None:
+        self.stop()
+        self.name = header[:header.index("]") + 1]
+        if self.name == "[serve]":
+            self.name = header
+        print(header, flush=True)
+        print(f"chip_smoke: {self.name} starts at "
+              f"{self.last - self.t0:.1f} s", file=sys.stderr, flush=True)
+
+    def stop(self) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            self.walls[self.name] = self.walls.get(self.name, 0.0) \
+                + now - self.last
+        self.name, self.last = None, now
+
+
 def main() -> int:
     import torch
 
@@ -4001,6 +4676,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    clock = PhaseClock()
+    clock.start("[build]")
     t0 = time.perf_counter()
     libs = _kernels.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s -> "
@@ -4012,112 +4689,125 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "warning")):
                 print("  " + line.strip())
 
-    print("[kernels] small cases: partial 128-row tiles (T = 64, 320), "
-          "B*H = 6, and a non-causal T = 256")
+    clock.start("[kernels] small cases: partial 128-row tiles (T = 64, 320), "
+                "B*H = 6, and a non-causal T = 256")
     for t, causal in ((64, True), (64, False), (320, True), (320, False)):
         check_kernels(2, t, 3, 64, causal=causal, seed=3, timed=False)
     check_kernels(2, 256, 4, 64, causal=False, seed=1, timed=False)
-    print("[kernels] B*H = 144 (more items per q block than the 132 SMs: "
-          "several persistent rounds), T = 320 (last item half past T)")
+    clock.start("[kernels] B*H = 144 (more items per q block than the 132 "
+                "SMs: several persistent rounds), T = 320 (last item half "
+                "past T)")
     check_kernels(12, 320, 12, 64, causal=True, seed=4, timed=False)
-    print("[kernels] main-path shape B16 T1024 H12 D64 bf16 causal")
+    clock.start("[kernels] main-path shape B16 T1024 H12 D64 bf16 causal")
     results = check_kernels(16, 1024, 12, 64, causal=True, seed=2,
                             timed=True)
 
-    print("[kernels] lse cotangent: flash_attention_with_lse with random "
-          "dO and dlse, B16 T1024 H12 D64 bf16")
+    clock.start("[kernels] lse cotangent: flash_attention_with_lse with "
+                "random dO and dlse, B16 T1024 H12 D64 bf16")
     for causal in (True, False):
         check_lse_cotangent(16, 1024, 12, 64, causal=causal, seed=6)
 
     profile = "--profile" in sys.argv[1:]
-    print("[main path] GPT-2 124M, B16 T1024, flash + remat, chunk 256")
+    clock.start("[main path] GPT-2 124M, B16 T1024, flash + remat, chunk 256")
     counts, unsharded = main_path(card, profile=profile)
     free_device_memory()
 
-    print("[telemetry] the main path through make_sharded_train_step("
-          "telemetry=True), TrainSession.iter_device_batches and "
-          "session.report: goodput, the xprof harvest, the decomposition")
+    clock.start("[telemetry] the main path through "
+                "make_sharded_train_step(telemetry=True), "
+                "TrainSession.iter_device_batches and session.report: "
+                "goodput, the xprof harvest, the decomposition")
     telemetry = telemetry_phase(card, unsharded)
     free_device_memory()
 
-    print("[sharded] GPT-2 124M, B16 T1024, world-1 NCCL gang, DTensor "
-          "state, ring attention, full-logits loss")
+    clock.start("[sharded] GPT-2 124M, B16 T1024, world-1 NCCL gang, DTensor "
+                "state, ring attention, full-logits loss")
     with world1_gang() as (mesh, group_name):
         _counts, sharded = sharded_path(card, unsharded, mesh,
                                         profile=profile)
         nccl_telemetry(group_name, card)
-        print("[checkpoint] the [sharded] state: save_sharded, load_sharded "
-              "onto the mesh and on the host, one more step from each")
+        clock.start("[checkpoint] the [sharded] state: save_sharded, "
+                    "load_sharded onto the mesh and on the host, one more "
+                    "step from each")
         checkpoint_phase(card, sharded)
         del sharded
     free_device_memory()
 
-    print("[moe] GPT-2 124M widths, 8 experts (d_ff 3072) in every other "
-          "block, top-2, capacity 1.25, bf16, flash + remat, B16 T1024")
+    clock.start("[moe] GPT-2 124M widths, 8 experts (d_ff 3072) in every "
+                "other block, top-2, capacity 1.25, bf16, flash + remat, B16 "
+                "T1024")
     moe_phase(card, unsharded, profile=profile)
     free_device_memory()
 
-    print("[ring] ring (flash) and Ulysses attention, seq = 2 and 4 "
-          "processes on one card, gloo, B4 T4096 H12 D64 bf16 causal")
+    clock.start("[ring] ring (flash) and Ulysses attention, seq = 2 and 4 "
+                "processes on one card, gloo, B4 T4096 H12 D64 bf16 causal")
     ring_phase(card)
     free_device_memory()
 
-    print("[pipeline] GPipe over S = 2 and 4 processes on one card, gloo: "
-          "GPT-2 124M blocks, B16 T1024 hidden states, M = 8, bf16 flash")
+    clock.start("[pipeline] GPipe over S = 2 and 4 processes on one card, "
+                "gloo: GPT-2 124M blocks, B16 T1024 hidden states, M = 8, "
+                "bf16 flash")
     pipeline_phase(card)
     free_device_memory()
 
-    print("[runtime] the port's runtime: GPU detection and leases, "
-          "CUDA_VISIBLE_DEVICES, a CUDA tensor through the object plane, "
-          "a torch.profiler capture of an actor")
+    clock.start("[runtime] the port's runtime: GPU detection and leases, "
+                "CUDA_VISIBLE_DEVICES, a CUDA tensor through the object "
+                "plane, a torch.profiler capture of an actor")
     runtime = runtime_phase(card)
-    print("[trainer] TorchTrainer: the [main path] configuration in a GPU "
-          "worker, a world-2 gloo gang, a restart from a checkpoint")
+    clock.start("[trainer] TorchTrainer: the [main path] configuration in a "
+                "GPU worker, a world-2 gloo gang, a restart from a checkpoint")
     runtime.update(trainer_phase(card, unsharded))
     free_device_memory()
 
-    print("[data] GPT-2 124M fed from a ray_tpu_torch.data Dataset of 8 "
-          "block tasks: unpipelined against prefetch_blocks=2 + "
-          "iter_device_batches(depth=2)")
+    clock.start("[data] GPT-2 124M fed from a ray_tpu_torch.data Dataset of 8"
+                " block tasks: unpipelined against prefetch_blocks=2 + "
+                "iter_device_batches(depth=2)")
     data, data_losses, ds = data_phase(card)
-    print("[trainer data] TorchTrainer(datasets={'train': ds}): the "
-          "worker trains on get_dataset_shard('train')")
+    clock.start("[trainer data] TorchTrainer(datasets={'train': ds}): the "
+                "worker trains on get_dataset_shard('train')")
     data["trainer"] = trainer_data_phase(card, ds, data_losses[:6])
     free_device_memory()
-    print("[tune] Tuner over a TorchTrainer at 2 layers: grid of 4 rates, "
-          "ASHA, two trials sharing the card")
+    clock.start("[tune] Tuner over a TorchTrainer at 2 layers: grid of 4 "
+                "rates, ASHA, four trials at once sharing the card")
     data["tune"] = tune_phase(card, ds)
     free_device_memory()
-    print("[rl] the RL learners on the card against the CPU, two IMPALA "
-          "learners sharing the card over gloo, multi-agent PPO, PPO on "
-          "CartPole-v1 where gymnasium is installed")
+    clock.start("[rl] the RL learners on the card against the CPU, two IMPALA"
+                " learners sharing the card over gloo, multi-agent PPO, PPO "
+                "on CartPole-v1 where gymnasium is installed")
     rl = rl_phase(card)
-    print("[entry] ray_tpu_torch.entry.entry(): GPT-2 vocab 8192, 4 "
-          "layers, d_model 512, bf16, tokens [2, 128]")
+    clock.start("[entry] ray_tpu_torch.entry.entry(): GPT-2 vocab 8192, 4 "
+                "layers, d_model 512, bf16, tokens [2, 128]")
     rl["entry"] = entry_phase(card)
     free_device_memory()
 
-    print("[cluster] the operator's path: rt start --head, init(address="
-          "'auto'), GPT-2 124M parameters through the pool into a GPU "
-          "actor, pip/uv envs on the card, a compiled DAG, rt doctor, "
-          "rt stop")
+    clock.start("[cluster] the operator's path: rt start --head, "
+                "init(address='auto'), GPT-2 124M parameters through the pool"
+                " into a GPU actor, pip/uv envs on the card, a compiled DAG, "
+                "rt doctor, rt stop")
     cluster = cluster_phase(card, unsharded)
+    free_device_memory()
+
+    clock.start("[fleet] the fleet tools: rt job submit/stop/logs, an rt:// "
+                "driver, the dashboard, the autoscaler, rt up/exec/down, the "
+                "control-plane benchmarks, each step on the card")
+    fleet = fleet_phase(card, unsharded)
     free_device_memory()
 
     serving = []
     for name, phase in (("GPT-2 124M", serve_gpt2),
                         ("GPT-2 124M float32", serve_gpt2_float32),
                         ("Llama-2-7B widths", serve_llama)):
-        print(f"[serve] {name}")
+        clock.start(f"[serve] {name}")
         serving.append({"phase": name, **phase(card)})
         free_device_memory()
 
-    print("[serve plane] GPT-2 124M bf16 through serve.run(llm_deployment("
-          "num_gpus=1)): the handle, the stdlib HTTP ingress, the cluster "
-          "read back, two replicas on one card")
+    clock.start("[serve plane] GPT-2 124M bf16 through "
+                "serve.run(llm_deployment(num_gpus=1)): the handle, the "
+                "stdlib HTTP ingress, the cluster read back, two replicas on "
+                "one card")
     plane = serve_plane(card, serving[0])
     free_device_memory()
 
+    clock.stop()
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **results[name])
@@ -4130,6 +4820,9 @@ def main() -> int:
     print(json.dumps({"serve_plane": plane}))
     print(json.dumps({"rl": rl}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"phase_walls": clock.walls,
+                      "total_s": time.perf_counter() - clock.t0}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

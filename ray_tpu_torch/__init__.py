@@ -37,9 +37,10 @@ from .core.object_ref import ObjectRef  # noqa: F401
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("collective", "data", "device", "dryrun", "llm",
-                    "models", "ops", "parallel", "rl", "serve", "train",
-                    "tune", "util")
+_LAZY_SUBMODULES = ("autoscaler", "client", "collective", "dashboard",
+                    "data", "device", "dryrun", "job", "llm", "models",
+                    "ops", "parallel", "rl", "serve", "train", "tune",
+                    "util")
 
 
 def __getattr__(name: str):
@@ -78,27 +79,33 @@ def init(
       ray_tpu_torch start`` recorded on this machine (``RT_ADDRESS``
       first, then the session record under the session root).
 
+    - ``address="rt://<host:port>"``: a remote driver through the head's
+      client server (``start --head --client-server-port``).
+
     ``num_gpus`` overrides GPU detection (``/proc/driver/nvidia``, a
-    preset ``CUDA_VISIBLE_DEVICES``).  The remote client (``rt://``) is
-    not ported yet and raises.
+    preset ``CUDA_VISIBLE_DEVICES``).
     """
     if _runtime_mod.is_initialized():
         if ignore_reinit_error:
             return _runtime_mod.get_runtime()
         raise RuntimeError("ray_tpu_torch.init() called twice "
                            "(pass ignore_reinit_error=True to allow)")
-    if address and address.startswith("rt://"):
-        raise NotImplementedError(
-            f"address={address!r} needs the remote client, not ported yet "
-            "(ROADMAP Queue 1 item 6: 'jobs, the remote client, the "
-            "autoscaler, the dashboard'); pass the controller's host:port "
-            "or 'auto'")
     overrides = dict(config or {})
     if object_store_memory:
         overrides["object_store_memory_bytes"] = int(object_store_memory)
     if log_to_driver is not None:
         overrides["log_to_driver"] = log_to_driver
     cfg = RuntimeConfig.from_env(overrides)
+    if address and address.startswith("rt://"):
+        # Remote driver: one connection to the head's ClientServer; no
+        # cluster-routable agent needed on this machine (ref:
+        # util/client/ARCHITECTURE.md).
+        from .client.runtime import ClientRuntime
+
+        rt = ClientRuntime(cfg, address[len("rt://"):])
+        _runtime_mod.set_runtime(rt)
+        atexit.register(_shutdown_quiet)
+        return rt
     if mode == "auto":
         mode = "local" if os.environ.get("RT_LOCAL_MODE") == "1" \
             else "cluster"

@@ -115,6 +115,44 @@ def _nvml_count(lib: str) -> Optional[int]:
     return int(count.value)
 
 
+def nvml_device_name(index: Optional[int] = None,
+                     lib: str = "libnvidia-ml.so.1",
+                     env: Optional[Dict[str, str]] = None) -> str:
+    """The name NVML gives GPU ``index`` of this host (as
+    ``nvidia-smi`` and ``torch.cuda.get_device_name`` print it), read
+    through ctypes with no CUDA context and no torch.  ``index=None``
+    names this process's first visible GPU: the first id of
+    ``CUDA_VISIBLE_DEVICES`` where it is set, else GPU 0.  "" when no
+    GPU is visible or the library is missing or fails."""
+    import ctypes
+
+    if index is None:
+        ids = _visible_ids(os.environ if env is None else env)
+        if ids == []:
+            return ""
+        index = ids[0] if ids else 0
+    try:
+        nvml = ctypes.CDLL(lib)
+    except OSError:
+        return ""
+    handle = ctypes.c_void_p()
+    name = ctypes.create_string_buffer(96)
+    try:
+        if nvml.nvmlInit_v2() != 0:
+            return ""
+        try:
+            if nvml.nvmlDeviceGetHandleByIndex_v2(
+                    ctypes.c_uint(index), ctypes.byref(handle)) != 0 \
+                    or nvml.nvmlDeviceGetName(handle, name,
+                                              ctypes.c_uint(96)) != 0:
+                return ""
+        finally:
+            nvml.nvmlShutdown()
+    except AttributeError:
+        return ""
+    return name.value.decode(errors="replace")
+
+
 def detect_gpus(proc_root: str = "/proc/driver/nvidia/gpus",
                 dev_glob: str = "/dev/nvidia[0-9]*",
                 env: Optional[Dict[str, str]] = None,

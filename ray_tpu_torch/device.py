@@ -7,6 +7,8 @@ run that believes it measured the card must have used it.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 
@@ -20,3 +22,12 @@ def resolve_device(device=None) -> torch.device:
                 "the plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor.  A DTensor exists only once
+    ``torch.distributed.tensor`` is loaded, so this never imports it:
+    that import brings sympy, seconds of a new process's first step on
+    a path that holds no DTensor."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return module is not None and isinstance(x, module.DTensor)

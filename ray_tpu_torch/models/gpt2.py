@@ -47,10 +47,10 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from ..device import resolve_device
+from ..device import is_dtensor, resolve_device
 from ..ops.matmul import matmul_f32
+from ..ops.remat import checkpoint
 
 
 @dataclass(frozen=True)
@@ -133,9 +133,9 @@ def _embed(tokens, table):
     lookup into a table sharded on its vocab rows fails when the tokens
     are sharded on another mesh axis (its masked partial result does
     not fit the token shard)."""
-    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
 
-    if isinstance(table, DTensor):
         table = table.redistribute(
             table.device_mesh, [Replicate()] * table.device_mesh.ndim)
     return F.embedding(tokens, table)
@@ -318,7 +318,7 @@ class GPT2(nn.Module):
             elif remat:
                 # The block's forward (flash attention included) runs
                 # again in the backward.
-                x = checkpoint(blk, x, use_reentrant=False)
+                x = checkpoint(blk, x)
             else:
                 x = blk(x)
             if blk.use_moe and not decode:

@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device
+from ..device import is_dtensor, resolve_device
 
 
 def _route(xf: torch.Tensor, router: torch.Tensor, top_k: int,
@@ -176,11 +176,9 @@ class MoEMLP(nn.Module):
         self.w_out.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        from torch.distributed.tensor import DTensor
-
         kw = dict(top_k=self.top_k, capacity_factor=self.capacity_factor,
                   dtype=self.dtype)
-        if not isinstance(self.w_in, DTensor):
+        if not is_dtensor(self.w_in):
             return moe_forward(x, self.router, self.w_in, self.w_out, **kw)
         return _sharded(self, x, kw)
 

@@ -49,10 +49,10 @@ def pipeline_apply(stage_fn: Callable, stage_params: Any, x: torch.Tensor,
     micro = x.reshape((m, b // m) + tuple(x.shape[1:]))
     fn = stage_fn
     if checkpoint_stage:
-        from torch.utils.checkpoint import checkpoint
+        from ..ops.remat import checkpoint
 
         def fn(params, h):
-            return checkpoint(stage_fn, params, h, use_reentrant=False)
+            return checkpoint(stage_fn, params, h)
 
     first = torch.tensor(stage == 0, device=x.device)
     acts = torch.zeros_like(micro[0])

@@ -153,9 +153,9 @@ def _steps(checkpoint_steps: bool):
     nothing."""
     if not checkpoint_steps:
         return lambda fn, *args: fn(*args)
-    from torch.utils.checkpoint import checkpoint
+    from ..ops.remat import checkpoint
 
-    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint
 
 
 def ring_attention(q, k, v, *, group=None, causal: bool = True,

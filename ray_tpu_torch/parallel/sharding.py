@@ -36,6 +36,8 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..device import is_dtensor
+
 LogicalAxes = Tuple[Optional[str], ...]
 
 # Default table: batch over data(+fsdp), params sharded over fsdp,
@@ -258,10 +260,10 @@ def replicate_like(x, t: torch.Tensor):
     """``t`` (a full value every rank holds, such as a mask or a RoPE
     table) as a replicated DTensor on ``x``'s mesh when ``x`` is a
     DTensor, so the two can meet in one op; ``t`` itself otherwise."""
+    if not is_dtensor(x):
+        return t
     from torch.distributed.tensor import DTensor, Replicate
 
-    if not isinstance(x, DTensor):
-        return t
     mesh = x.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)

@@ -12,11 +12,6 @@ machine that ran ``start``).
 Run as ``python -m ray_tpu_torch.scripts.cli`` (alias: ``python -m
 ray_tpu_torch``).  ``start --num-gpus`` overrides GPU detection.
 
-Not ported yet (ROADMAP Queue 1 item 6, "jobs, the remote client, the
-autoscaler, the dashboard"): ``job``, ``logs --job``, ``up``, ``down``,
-``exec``, ``autoscale``, ``dashboard`` and ``start
---client-server-port``; they exit with code 2 and say so.
-
 State: each machine records the processes it started under
 ``<session_dir_root>/<session>/cluster.json`` and points
 ``<session_dir_root>/latest`` at the newest session, so ``rt stop`` /
@@ -125,9 +120,6 @@ def cmd_start(args) -> int:
     if args.head and args.address:
         print("error: pass --head OR --address, not both", file=sys.stderr)
         return 2
-    if args.client_server_port >= 0:
-        return _not_ported("start --client-server-port (the rt:// "
-                           "remote-driver listener)")
     pids: List[int] = []
     if args.head:
         session = args.session or (f"session_{int(time.time())}_"
@@ -151,6 +143,64 @@ def cmd_start(args) -> int:
         tag="head" if args.head else f"join-{os.getpid()}")
     pids.append(agent_proc.pid)
 
+    client_addr = None
+    if args.head and args.client_server_port >= 0:
+        # rt:// remote-driver listener (ref: Ray Client's default port
+        # 10001 on the head; util/client/server/proxier.py).
+        import subprocess as _sp
+
+        cs_proc = _sp.Popen(
+            [sys.executable, "-u", "-m", "ray_tpu_torch.client.server",
+             "--address", ctl_addr,
+             "--port", str(args.client_server_port)],
+            stdout=_sp.PIPE, stderr=_sp.DEVNULL)
+        # A hung child that never prints the port line must not hang
+        # `rt start`: poll the pipe fd so the 30s deadline applies even
+        # mid-line, then fall through to the warning path.
+        import selectors as _selectors
+
+        sel = _selectors.DefaultSelector()
+        sel.register(cs_proc.stdout, _selectors.EVENT_READ)
+        deadline = time.time() + 30
+        buf = ""
+        eof = False
+        while time.time() < deadline:
+            if not sel.select(timeout=max(0.0, deadline - time.time())):
+                break  # deadline expired with no output
+            chunk = os.read(cs_proc.stdout.fileno(), 4096).decode(
+                "utf-8", "replace")
+            if not chunk:
+                eof = True  # child closed stdout
+                break
+            buf += chunk
+            # Parse only newline-terminated lines; a read can race the
+            # child's write mid-line, and a partial "...PORT=10" must
+            # not become the advertised port.
+            *lines, buf = buf.split("\n")
+            for line in lines:
+                if line.startswith("RT_CLIENT_SERVER_PORT="):
+                    host = ctl_addr.rsplit(":", 1)[0]
+                    client_addr = (
+                        f"rt://{host}:{line.split('=')[1].strip()}")
+                    break
+            if client_addr is not None:
+                break
+        if client_addr is None and eof and \
+                buf.startswith("RT_CLIENT_SERVER_PORT="):
+            # Child closed stdout right after an unterminated port line
+            # — still a valid announcement.  ONLY on EOF: on deadline
+            # expiry the child may be mid-write and the buffer could
+            # hold a truncated port.
+            host = ctl_addr.rsplit(":", 1)[0]
+            client_addr = f"rt://{host}:{buf.split('=')[1].strip()}"
+        sel.close()
+        if client_addr is None:
+            print("warning: rt:// client server failed to start",
+                  file=sys.stderr)
+            cs_proc.terminate()
+        else:
+            pids.append(cs_proc.pid)
+
     _record(config, session, address=ctl_addr, pids=pids, head=args.head)
 
     if args.head:
@@ -162,7 +212,10 @@ def cmd_start(args) -> int:
               f"--address={ctl_addr}\n\n"
               f"Connect a driver with:\n"
               f"  ray_tpu_torch.init(address=\"{ctl_addr}\")  "
-              f"# or address=\"auto\" on this machine")
+              f"# or address=\"auto\" on this machine"
+              + (f"\n\nConnect a REMOTE driver (laptop) with:\n"
+                 f"  ray_tpu_torch.init(address=\"{client_addr}\")"
+                 if client_addr else ""))
     else:
         print(f"Joined cluster at {ctl_addr}.\n"
               f"  node agent: {agent_addr} ({node_id[:12]})")
@@ -350,8 +403,8 @@ def cmd_profile(args) -> int:
     from ray_tpu_torch.util import state as state_api
 
     if not args.torch:
-        print("error: pass --torch (sampling profiles of one worker: "
-              "util.state.profile_worker)", file=sys.stderr)
+        print("error: pass --torch (sampling profiles are served via "
+              "/api/profile on the dashboard)", file=sys.stderr)
         return 2
     address = resolve_address(address=args.address)
     if not address:
@@ -478,14 +531,17 @@ def cmd_perf(args) -> int:
     intensity), step decomposition, per-mesh-axis collective
     byte/time shares, compile events, and device-memory watermarks —
     assembled from the rt_xla_* gauges that harvested train steps and
-    engine programs publish (util/xprof.py)."""
+    engine programs publish (util/xprof.py).  Peaks are those of the
+    GPU NVML names: the CLI loads no torch."""
+    from ray_tpu_torch.core.resources import nvml_device_name
     from ray_tpu_torch.util import xprof as xprof_mod
 
     address = resolve_address(address=args.address)
     if not address:
         print("No running cluster found.", file=sys.stderr)
         return 1
-    rep = xprof_mod.cluster_report(address=address)
+    rep = xprof_mod.cluster_report(address=address,
+                                   device_name=nvml_device_name())
     if args.format == "json" or getattr(args, "json", False):
         print(json.dumps(rep, indent=2, default=repr))
     else:
@@ -752,16 +808,102 @@ def cmd_jobs(args) -> int:
     return 0
 
 
+def _job_client(address: str):
+    import ray_tpu_torch
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    addr = resolve_address(address=address)
+    if not addr:
+        print("No running cluster found.", file=sys.stderr)
+        raise SystemExit(1)
+    if not ray_tpu_torch.is_initialized():
+        ray_tpu_torch.init(address=addr)
+    return JobSubmissionClient(addr)
+
+
+def cmd_job(args) -> int:
+    try:
+        return _cmd_job_inner(args)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 1
+    except (ValueError, TimeoutError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+def _cmd_job_inner(args) -> int:
+    client = _job_client(args.address)
+    if args.job_command == "submit":
+        renv = {}
+        if args.working_dir:
+            renv["working_dir"] = args.working_dir
+        if args.env:
+            bad = [kv for kv in args.env if "=" not in kv]
+            if bad:
+                print(f"error: --env needs K=V form, got {bad}",
+                      file=sys.stderr)
+                return 2
+            renv["env_vars"] = dict(kv.split("=", 1) for kv in args.env)
+        ep = args.entrypoint
+        if ep[:1] == ["--"]:
+            ep = ep[1:]
+        if not ep:
+            print("error: no entrypoint given", file=sys.stderr)
+            return 2
+        quota = None
+        if args.quota:
+            try:
+                quota = json.loads(args.quota)
+            except json.JSONDecodeError as e:
+                print(f"error: --quota must be JSON "
+                      f"(e.g. '{{\"CPU\": 4}}'): {e}", file=sys.stderr)
+                return 2
+        job_id = client.submit_job(
+            entrypoint=" ".join(ep),
+            submission_id=args.id or None,
+            runtime_env=renv or None,
+            priority=args.priority,
+            quota=quota)
+        print(f"Submitted {job_id}")
+        if args.wait:
+            st = client.wait_until_finished(job_id,
+                                            timeout=args.timeout)
+            sys.stdout.write(client.get_job_logs(job_id))
+            print(f"Job {job_id}: {st.status} {st.message}")
+            return 0 if st.status == "SUCCEEDED" else 1
+        return 0
+    if args.job_command == "status":
+        st = client.get_job_status(args.id)
+        print(f"{st.job_id}: {st.status}"
+              + (f" ({st.message})" if st.message else ""))
+        return 0 if st.status != "FAILED" else 1
+    if args.job_command == "logs":
+        sys.stdout.write(client.get_job_logs(args.id))
+        return 0
+    if args.job_command == "stop":
+        ok = client.stop_job(args.id)
+        print("stopped" if ok else "not running")
+        return 0
+    if args.job_command == "list":
+        for st in client.list_jobs():
+            print(f"{st.job_id}  {st.status:<10} {st.entrypoint}")
+        return 0
+    return 2
+
+
 def cmd_logs(args) -> int:
     """Fetch worker/actor logs from node agents (ref:
     dashboard/modules/log/ + `ray logs`); works for dead workers (the
     log file outlives the process)."""
-    if args.job:
-        return _not_ported("`rt logs --job` (job logs)")
     address = resolve_address(address=args.address)
     if not address:
         print("No running cluster found.", file=sys.stderr)
         return 1
+    if args.job:
+        args.id = args.job
+        args.job_command = "logs"
+        return _cmd_job_inner(args)
     nodes = [n for n in _call(address, "list_nodes") if n["alive"]]
 
     def _nid_hex(n):
@@ -824,15 +966,55 @@ def cmd_logs(args) -> int:
     return 1
 
 
-def _not_ported(what: str) -> int:
-    print(f"error: {what} is not ported to ray_tpu_torch yet (ROADMAP "
-          "Queue 1 item 6: jobs, the remote client, the autoscaler, the "
-          "dashboard)", file=sys.stderr)
-    return 2
+def cmd_up(args) -> int:
+    from ray_tpu_torch.autoscaler import commands as _commands
+
+    state = _commands.up(args.spec, no_autoscaler=args.no_autoscaler,
+                         no_workers=args.no_workers)
+    print(f"Cluster {state['cluster_name']} is up.\n"
+          f"  address: {state['address']}\n"
+          f"  session: {state['session']}\n"
+          f"  workers launched: {len(state.get('launched', {}))}"
+          + ("\n  autoscaler: running on head"
+             if state.get("autoscaler") else ""))
+    print(f"RT_ADDRESS={state['address']}")
+    return 0
 
 
-def cmd_not_ported(args) -> int:
-    return _not_ported(f"`rt {args.command}`")
+def cmd_down(args) -> int:
+    from ray_tpu_torch.autoscaler import commands as _commands
+
+    _commands.down(args.spec)
+    print("Cluster torn down.")
+    return 0
+
+
+def cmd_exec(args) -> int:
+    from ray_tpu_torch.autoscaler import commands as _commands
+
+    for out in _commands.exec_cluster(args.spec, args.cmd,
+                                      all_nodes=args.all_nodes):
+        print(out, end="" if out.endswith("\n") else "\n")
+    return 0
+
+
+def cmd_autoscale(args) -> int:
+    from ray_tpu_torch.autoscaler import commands as _commands
+
+    _commands.run_autoscaler(args.spec, args.address)
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    from ray_tpu_torch.dashboard import run_dashboard
+
+    address = resolve_address(address=args.address)
+    if not address:
+        print("No running cluster found.", file=sys.stderr)
+        return 1
+    print(f"dashboard for {address} on http://0.0.0.0:{args.port}")
+    run_dashboard(address, args.port)
+    return 0
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -1032,7 +1214,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("dashboard", help="serve the web dashboard")
     sp.add_argument("--address", default="")
     sp.add_argument("--port", type=int, default=8265)
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_dashboard)
 
     sp = sub.add_parser("jobs",
                         help="multi-tenant job plane: priority, quota, "
@@ -1065,11 +1247,11 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="don't start the scaling loop on the head")
     sp.add_argument("--no-workers", action="store_true",
                     help="head only; skip min_workers bring-up")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_up)
 
     sp = sub.add_parser("down", help="tear down an `rt up` cluster")
     sp.add_argument("spec")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_down)
 
     sp = sub.add_parser("exec",
                         help="run a shell command on cluster hosts")
@@ -1077,7 +1259,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sp.add_argument("cmd", help="shell command to run")
     sp.add_argument("--all-nodes", action="store_true",
                     help="run on every known host, not just the head")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_exec)
 
     sp = sub.add_parser("autoscale",
                         help="run the scaling loop for a YAML cluster "
@@ -1085,7 +1267,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sp.add_argument("spec")
     sp.add_argument("--address", required=True,
                     help="controller address")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_autoscale)
 
     sp = sub.add_parser("job", help="submit and manage cluster jobs")
     jsub = sp.add_subparsers(dest="job_command", required=True)
@@ -1106,15 +1288,15 @@ def _build_parser() -> argparse.ArgumentParser:
     j.add_argument("--wait", action="store_true",
                    help="block until the job finishes; print its logs")
     j.add_argument("--timeout", type=float, default=3600)
-    j.set_defaults(fn=cmd_not_ported)
+    j.set_defaults(fn=cmd_job)
     for name in ("status", "logs", "stop"):
         j = jsub.add_parser(name)
         j.add_argument("id")
         j.add_argument("--address", default="")
-        j.set_defaults(fn=cmd_not_ported)
+        j.set_defaults(fn=cmd_job)
     j = jsub.add_parser("list")
     j.add_argument("--address", default="")
-    j.set_defaults(fn=cmd_not_ported)
+    j.set_defaults(fn=cmd_job)
     return p
 
 

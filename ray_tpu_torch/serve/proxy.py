@@ -17,17 +17,14 @@ import asyncio
 import json
 import threading
 import time
-from http import HTTPStatus
 from typing import Any, Dict, Optional
-from urllib.parse import parse_qsl, unquote, urlsplit
+from urllib.parse import parse_qsl
+
+from ..util.http11 import (MAX_HEAD, TEXT, BadRequest, Request, Response,
+                           encode_head, encode_response, json_response,
+                           read_body, read_request)
 
 REQUEST_ID_HEADER = "X-RT-Request-Id"
-
-# aiohttp's defaults, kept so both ingresses refuse the same requests.
-_MAX_BODY = 1024 ** 2
-_MAX_HEAD = 8190 * 4
-_JSON = "application/json; charset=utf-8"
-_TEXT = "text/plain; charset=utf-8"
 
 
 def status_class(status: int) -> str:
@@ -147,130 +144,6 @@ class _IngressTelemetry:
             pass
 
 
-class _BadRequest(Exception):
-    def __init__(self, status: int, text: str):
-        super().__init__(text)
-        self.status = status
-
-
-class _Request:
-    """One parsed HTTP/1.1 request head; the body is read on demand."""
-
-    def __init__(self, method: str, target: str, version: str,
-                 headers: Dict[str, str]):
-        self.method = method
-        self.version = version
-        self.headers = headers          # lower-cased names
-        parts = urlsplit(target)
-        self.path = unquote(parts.path) or "/"
-        self.query = parts.query
-        self.body = b""
-
-    def header(self, name: str) -> Optional[str]:
-        return self.headers.get(name.lower())
-
-    @property
-    def chunked(self) -> bool:
-        return "chunked" in (self.header("transfer-encoding") or "")
-
-    @property
-    def keep_alive(self) -> bool:
-        conn = (self.header("connection") or "").lower()
-        if self.version == "HTTP/1.0":
-            return conn == "keep-alive"
-        return conn != "close"
-
-
-class _Response:
-    """A complete (non-streaming) response."""
-
-    def __init__(self, status: int, body: bytes,
-                 content_type: str = _JSON):
-        self.status = status
-        self.body = body
-        self.content_type = content_type
-        self.headers: Dict[str, str] = {}
-        self.prepared = False
-
-
-def _json_response(data: Any, status: int = 200) -> _Response:
-    return _Response(status, json.dumps(data).encode())
-
-
-def _head(status: int, headers: Dict[str, str]) -> bytes:
-    try:
-        reason = HTTPStatus(status).phrase
-    except ValueError:
-        reason = ""
-    lines = [f"HTTP/1.1 {status} {reason}"]
-    lines += [f"{k}: {v}" for k, v in headers.items()]
-    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-
-
-async def _read_request(reader: asyncio.StreamReader
-                        ) -> Optional[_Request]:
-    """Parse one request head; None on a clean EOF between requests."""
-    try:
-        raw = await reader.readuntil(b"\r\n\r\n")
-    except asyncio.IncompleteReadError as e:
-        if not e.partial.strip():
-            return None
-        raise _BadRequest(400, "Bad Request")
-    except asyncio.LimitOverrunError:
-        raise _BadRequest(431, "Request Header Fields Too Large")
-    lines = raw.decode("latin-1").split("\r\n")
-    try:
-        method, target, version = lines[0].split(" ", 2)
-    except ValueError:
-        raise _BadRequest(400, "Bad Request")
-    if not version.startswith("HTTP/1."):
-        raise _BadRequest(505, "HTTP Version Not Supported")
-    headers: Dict[str, str] = {}
-    for line in lines[1:]:
-        if not line:
-            continue
-        name, sep, value = line.partition(":")
-        if not sep:
-            raise _BadRequest(400, "Bad Request")
-        headers[name.strip().lower()] = value.strip()
-    return _Request(method, target, version, headers)
-
-
-async def _read_body(req: _Request, reader: asyncio.StreamReader,
-                     writer: asyncio.StreamWriter) -> None:
-    if (req.header("expect") or "").lower() == "100-continue":
-        writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
-        await writer.drain()
-    if req.chunked:
-        parts, total = [], 0
-        while True:
-            size_line = await reader.readuntil(b"\r\n")
-            try:
-                size = int(size_line.split(b";")[0].strip(), 16)
-            except ValueError:
-                raise _BadRequest(400, "Bad Request")
-            if size == 0:
-                # Trailers (usually none) end with an empty line.
-                while (await reader.readuntil(b"\r\n")) != b"\r\n":
-                    pass
-                break
-            total += size
-            if total > _MAX_BODY:
-                raise _BadRequest(413, "Request Entity Too Large")
-            parts.append(await reader.readexactly(size))
-            await reader.readexactly(2)
-        req.body = b"".join(parts)
-        return
-    try:
-        length = int(req.header("content-length") or 0)
-    except ValueError:
-        raise _BadRequest(400, "Bad Request")
-    if length > _MAX_BODY:
-        raise _BadRequest(413, "Request Entity Too Large")
-    if length:
-        req.body = await reader.readexactly(length)
-
-
 class _Stream:
     """A chunked (``Transfer-Encoding: chunked``) streaming response."""
 
@@ -289,7 +162,7 @@ class _Stream:
                 or self._writer.transport.is_closing())
 
     async def prepare(self, headers: Dict[str, str]) -> None:
-        self._writer.write(_head(200, {
+        self._writer.write(encode_head(200, {
             **headers, "Transfer-Encoding": "chunked",
             "Connection": "keep-alive" if self._keep_alive
             else "close"}))
@@ -352,7 +225,7 @@ class HTTPProxy:
         loop = asyncio.new_event_loop()
         asyncio.set_event_loop(loop)
         server = loop.run_until_complete(asyncio.start_server(
-            self._connection, "0.0.0.0", self._port, limit=_MAX_HEAD))
+            self._connection, "0.0.0.0", self._port, limit=MAX_HEAD))
         self._actual_port = server.sockets[0].getsockname()[1]
         self._ready.set()
         loop.run_forever()
@@ -364,13 +237,13 @@ class HTTPProxy:
         try:
             while True:
                 try:
-                    req = await _read_request(reader)
+                    req = await read_request(reader)
                     if req is None:
                         return
-                    await _read_body(req, reader, writer)
-                except _BadRequest as e:
-                    writer.write(self._complete(
-                        _Response(e.status, str(e).encode(), _TEXT),
+                    await read_body(req, reader, writer)
+                except BadRequest as e:
+                    writer.write(encode_response(
+                        Response(e.status, str(e).encode(), TEXT),
                         keep_alive=False))
                     await writer.drain()
                     return
@@ -386,15 +259,7 @@ class HTTPProxy:
             except Exception:
                 pass
 
-    @staticmethod
-    def _complete(resp: _Response, keep_alive: bool) -> bytes:
-        headers = {"Content-Type": resp.content_type,
-                   "Content-Length": str(len(resp.body)),
-                   **resp.headers,
-                   "Connection": "keep-alive" if keep_alive else "close"}
-        return _head(resp.status, headers) + resp.body
-
-    async def _handler(self, req: _Request, reader, writer):
+    async def _handler(self, req: Request, reader, writer):
         """Telemetry and request-id wrapper around ``_handle``; writes a
         complete response (a stream writes itself).  Returns None when
         the connection is done."""
@@ -416,10 +281,10 @@ class HTTPProxy:
             except (ConnectionError, asyncio.CancelledError):
                 raise
             except Exception:  # noqa: BLE001 — a server fault: 500
-                resp = _Response(500, b"500 Internal Server Error\n\n"
-                                 b"Server got itself in trouble", _TEXT)
+                resp = Response(500, b"500 Internal Server Error\n\n"
+                                 b"Server got itself in trouble", TEXT)
                 resp.headers[REQUEST_ID_HEADER] = rid
-                writer.write(self._complete(resp, req.keep_alive))
+                writer.write(encode_response(resp, req.keep_alive))
                 await writer.drain()
                 return resp
             outcome = ("ok" if resp.status < 400
@@ -427,7 +292,7 @@ class HTTPProxy:
             sclass = status_class(resp.status)
             if not resp.prepared:
                 resp.headers[REQUEST_ID_HEADER] = rid
-                writer.write(self._complete(resp, req.keep_alive))
+                writer.write(encode_response(resp, req.keep_alive))
                 await writer.drain()
             return resp
         except (ConnectionError, asyncio.CancelledError):
@@ -440,7 +305,7 @@ class HTTPProxy:
                                 sclass, rid)
 
     # ---------------------------------------------------------- requests
-    def _payload(self, req: _Request) -> Any:
+    def _payload(self, req: Request) -> Any:
         if req.body:
             text = req.body.decode()
             try:
@@ -452,7 +317,7 @@ class HTTPProxy:
             query.setdefault(k, v)      # the first value of a key
         return query or None
 
-    def _request_timeout(self, req: _Request) -> Optional[float]:
+    def _request_timeout(self, req: Request) -> Optional[float]:
         """Per-request deadline override (X-RT-Timeout-S header);
         None falls through to ``serve_request_timeout_s``."""
         raw = req.header("X-RT-Timeout-S")
@@ -463,7 +328,7 @@ class HTTPProxy:
         except ValueError:
             return None
 
-    async def _handle(self, req: _Request, tel: Dict[str, str],
+    async def _handle(self, req: Request, tel: Dict[str, str],
                       rid: str, stream: _Stream):
         from .controller import DeploymentHandle
         from .resilience import RequestTimeoutError
@@ -472,7 +337,7 @@ class HTTPProxy:
         target = self._route_table.resolve(req.path)
         tel["deployment"] = target or "?"
         if target is None:
-            return _json_response({"error": f"no route for {req.path}"},
+            return json_response({"error": f"no route for {req.path}"},
                                   status=404)
         payload = self._payload(req)
         handle = self._routes.get(target)
@@ -510,16 +375,16 @@ class HTTPProxy:
         try:
             result = await _bounded(call_fut)
         except asyncio.TimeoutError:
-            return _json_response(
+            return json_response(
                 {"error": repr(RequestTimeoutError(
                     target, eff_timeout))}, status=504)
         except Exception as e:  # noqa: BLE001
-            return _json_response({"error": repr(e)},
+            return json_response({"error": repr(e)},
                                   status=_error_status(e))
         if isinstance(result, (dict, list, str, int, float, bool,
                                type(None))):
-            return _json_response({"result": result})
-        return _json_response({"result": repr(result)})
+            return json_response({"result": result})
+        return json_response({"result": repr(result)})
 
     async def _handle_stream(self, handle, target: str, payload: Any,
                              timeout_s, eff_timeout, rid: str,
@@ -576,14 +441,14 @@ class HTTPProxy:
             first = await _bounded(_await_step(step))
         except asyncio.TimeoutError:
             _close_after(step)
-            return _json_response(
+            return json_response(
                 {"error": repr(RequestTimeoutError(
                     target, eff_timeout))}, status=504)
         except (ConnectionError, asyncio.CancelledError):
             _close_after(step)
             raise
         except Exception as e:  # noqa: BLE001
-            return _json_response({"error": repr(e)},
+            return json_response({"error": repr(e)},
                                   status=_error_status(e))
         self._telemetry.observe_ttft(
             target, time.perf_counter() - t_ingress)

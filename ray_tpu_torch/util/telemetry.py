@@ -12,9 +12,8 @@ them into one operator-facing structure:
 
 Everything here is read-side only: the write side is the process-local
 metric registries shipped on the existing heartbeat cadence.
-``rt telemetry`` renders it with ``render_text``; the dashboard route
-is not ported yet (ROADMAP Queue 1 item 6, "jobs, the remote client,
-the autoscaler, the dashboard").
+``rt telemetry`` renders it with ``render_text``; the dashboard serves
+it as ``/api/telemetry``.
 """
 
 from __future__ import annotations

@@ -79,31 +79,34 @@ def _device_name() -> str:
     return torch.cuda.get_device_name(torch.cuda.current_device())
 
 
-def _resolve(env: str, table: Dict[str, float]) -> float:
-    """The ``env`` override, else the table entry whose key the current
-    device's name contains, else 0 (an unknown device or the CPU)."""
+def _resolve(env: str, table: Dict[str, float],
+             device_name: Optional[str]) -> float:
+    """The ``env`` override, else the table entry whose key the device's
+    name contains, else 0 (an unknown device or the CPU).  The device is
+    ``device_name`` where given, else this process's CUDA device."""
     value = os.environ.get(env, "")
     if value:
         try:
             return float(value)
         except ValueError:
             pass
-    name = _device_name()
+    name = _device_name() if device_name is None else device_name
     return next((v for k, v in table.items() if k in name), 0.0)
 
 
-def resolve_peak_flops() -> float:
-    return _resolve("RT_PEAK_FLOPS_PER_DEVICE", PEAK_FLOPS_BY_DEVICE)
+def resolve_peak_flops(device_name: Optional[str] = None) -> float:
+    return _resolve("RT_PEAK_FLOPS_PER_DEVICE", PEAK_FLOPS_BY_DEVICE,
+                    device_name)
 
 
-def resolve_peak_hbm() -> float:
+def resolve_peak_hbm(device_name: Optional[str] = None) -> float:
     return _resolve("RT_PEAK_HBM_BYTES_PER_SEC",
-                    PEAK_HBM_BYTES_PER_SEC_BY_DEVICE)
+                    PEAK_HBM_BYTES_PER_SEC_BY_DEVICE, device_name)
 
 
-def resolve_interconnect() -> float:
+def resolve_interconnect(device_name: Optional[str] = None) -> float:
     return _resolve("RT_INTERCONNECT_BYTES_PER_SEC",
-                    INTERCONNECT_BYTES_PER_SEC_BY_DEVICE)
+                    INTERCONNECT_BYTES_PER_SEC_BY_DEVICE, device_name)
 
 
 # ------------------------------------------------------------------
@@ -231,7 +234,8 @@ def build_report(programs: Dict[str, Dict[str, Any]],
                  measured: Optional[Dict[str, Dict[str, float]]] = None,
                  *, peak_flops: Optional[float] = None,
                  peak_hbm: Optional[float] = None,
-                 interconnect: Optional[float] = None
+                 interconnect: Optional[float] = None,
+                 device_name: Optional[str] = None
                  ) -> Dict[str, Any]:
     """Combine harvested program facts with measured step times.
 
@@ -245,10 +249,15 @@ def build_report(programs: Dict[str, Dict[str, Any]],
     attainable FLOP/s, and a step decomposition: roofline-minimum
     compute time, per-axis collective minimum time at the interconnect
     bandwidth, and the unattributed remainder of the measured step.
+    Unset peaks are those of ``device_name``, else of this process's
+    CUDA device (a process without torch, such as the dashboard, passes
+    the name NVML gives).
     """
-    peak_flops = peak_flops or resolve_peak_flops()
-    peak_hbm = peak_hbm or resolve_peak_hbm()
-    interconnect = interconnect or resolve_interconnect()
+    if device_name is None:
+        device_name = _device_name()
+    peak_flops = peak_flops or resolve_peak_flops(device_name)
+    peak_hbm = peak_hbm or resolve_peak_hbm(device_name)
+    interconnect = interconnect or resolve_interconnect(device_name)
     measured = measured or {}
     rows: Dict[str, Any] = {}
     for name, prog in sorted((programs or {}).items()):
@@ -308,7 +317,7 @@ def build_report(programs: Dict[str, Dict[str, Any]],
         rows[name] = row
     return {
         "ts": time.time(),
-        "peaks": {"device": _device_name(),
+        "peaks": {"device": device_name,
                   "flops_per_sec": peak_flops,
                   "hbm_bytes_per_sec": peak_hbm,
                   "interconnect_bytes_per_sec": interconnect},
@@ -858,12 +867,14 @@ def measure_step_decomposition(loss_fn, optimizer, state, batch, *,
 
 
 def cluster_report(*, address: Optional[str] = None,
-                   summary: Optional[Dict[str, Any]] = None
+                   summary: Optional[Dict[str, Any]] = None,
+                   device_name: Optional[str] = None
                    ) -> Dict[str, Any]:
     """Assemble the cluster-wide perf report from the telemetry
     summary's ``xla`` section (every process's registered programs,
     shipped with its metric snapshots) plus the measured train/LLM step
-    times (the goodput cadence + the step-time histograms)."""
+    times (the goodput cadence + the step-time histograms).  Peaks are
+    ``device_name``'s, as ``build_report`` takes it."""
     if summary is None:
         from .telemetry import cluster_summary
 
@@ -897,7 +908,7 @@ def cluster_report(*, address: Optional[str] = None,
             if name.startswith("llm_decode"):
                 measured[name] = {"step_time_s": tpot["mean"]}
 
-    report = build_report(programs, measured)
+    report = build_report(programs, measured, device_name=device_name)
     report["device_memory"] = xla.get("device_memory") or {}
     report["goodput"] = summary.get("goodput") or {}
     return report

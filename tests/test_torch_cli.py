@@ -13,8 +13,11 @@ then show, and which turns into the critical stale-drain finding (and
 --summary``; ``stop``, after which ``status`` finds no cluster and no
 process of the session lives.  The port's numbers are held to JAX's;
 JAX's pid-spread check (tests/test_cli.py) is not taken as reference,
-its tasks land on one worker (ROADMAP Queue 3).  The subcommands that
-need ROADMAP item 6 exit 2 naming it.
+its tasks land on one worker (ROADMAP Queue 3).  ``init`` with an
+unreachable ``rt://`` address raises the RPC layer's connection error in
+both packages (the job, launcher, dashboard and client commands have
+their own files: tests/test_torch_jobs.py, test_torch_autoscaler.py,
+test_torch_dashboard.py, test_torch_client.py).
 """
 
 import json
@@ -204,32 +207,30 @@ def test_cli_flow_values(flows):
     assert port["left_alive"] == []
 
 
-@pytest.mark.parametrize("args", [
-    ["up", "cluster.yaml"], ["down", "cluster.yaml"],
-    ["exec", "cluster.yaml", "true"],
-    ["autoscale", "cluster.yaml", "--address", "h:1"], ["dashboard"],
-    ["job", "list"], ["job", "status", "x"], ["logs", "--job", "x"],
-    ["start", "--head", "--client-server-port", "0"]])
-def test_item_6_subcommands_exit_2_naming_it(args, tmp_path):
-    env = dict(os.environ, RT_SESSION_DIR_ROOT=str(tmp_path),
-               PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
-                       capture_output=True, text=True, env=env,
-                       timeout=60, cwd=tmp_path)
-    assert r.returncode == 2, r.stdout + r.stderr
-    assert "ROADMAP Queue 1 item 6" in r.stderr
-    assert not (tmp_path / "latest").exists()
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_init_auto_without_a_cluster_and_rt_scheme(pkg, tmp_path,
+                                                   monkeypatch):
+    import importlib
+    import socket
 
-
-def test_init_auto_without_a_cluster_and_rt_scheme(tmp_path, monkeypatch):
-    import ray_tpu_torch as rt
-
+    rt = importlib.import_module(pkg)
+    client_runtime = importlib.import_module(f"{pkg}.client.runtime")
+    rpc = importlib.import_module(f"{pkg}.core.rpc")
     monkeypatch.setenv("RT_SESSION_DIR_ROOT", str(tmp_path))
     monkeypatch.delenv("RT_ADDRESS", raising=False)
     with pytest.raises(ConnectionError, match="no running cluster"):
         rt.init(address="auto")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rt.init(address="rt://h:1")
+    # The client's 30 s connect timeout, cut to 1 s for the test.
+    real = client_runtime.RpcClient
+    monkeypatch.setattr(client_runtime, "RpcClient", lambda addr, **kw:
+                        real(addr, **{**kw, "connect_timeout": 1.0}))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with pytest.raises(rpc.RpcError, match=f"cannot connect to "
+                       f"127.0.0.1:{port}"):
+        rt.init(address=f"rt://127.0.0.1:{port}")
     assert not rt.is_initialized()
 
 

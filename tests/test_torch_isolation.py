@@ -56,6 +56,22 @@ OPERATOR_MODULES = ("_native/__init__.py", "_native/shm_pool.py",
                     "scripts/__init__.py", "scripts/cli.py",
                     "__main__.py")
 
+# The last modules: jobs, the rt:// client, the dashboard (and the
+# HTTP/1.1 layer it shares with the serve ingress), the autoscaler and
+# launcher, the control-plane benchmarks.
+FLEET_MODULES = ("job/__init__.py", "job/supervisor.py", "job/client.py",
+                 "client/__init__.py", "client/session_host.py",
+                 "client/server.py", "client/runtime.py",
+                 "dashboard/__init__.py", "dashboard/__main__.py",
+                 "autoscaler/__init__.py", "autoscaler/node_provider.py",
+                 "autoscaler/fake_provider.py", "autoscaler/autoscaler.py",
+                 "autoscaler/sdk.py", "autoscaler/cluster_spec.py",
+                 "autoscaler/command_runner.py",
+                 "autoscaler/remote_provider.py", "autoscaler/commands.py",
+                 "autoscaler/gcp_provider.py", "util/perf_ledger.py",
+                 "util/microbenchmark.py", "util/scale_bench.py",
+                 "util/http11.py")
+
 # The RL stack and the graft-entry counterpart.
 RL_MODULES = ("rl/__init__.py", "rl/rl_module.py", "rl/convert.py",
               "rl/connectors.py", "rl/learner.py", "rl/actor_manager.py",
@@ -90,7 +106,7 @@ def test_forbidden_matches_whole_prefixes():
                                     "tests/test_torch_cuda.py",
                                     *(f"ray_tpu_torch/{m}"
                                       for m in SERVE_MODULES + RL_MODULES
-                                      + OPERATOR_MODULES)])
+                                      + OPERATOR_MODULES + FLEET_MODULES)])
 def test_sources_import_nothing_of_jax_or_ray_tpu(target):
     files = sorted(PKG.rglob("*.py")) if target == "ray_tpu_torch" \
         else [ROOT / target]
@@ -170,6 +186,14 @@ def test_import_adds_no_jax_or_ray_tpu_module():
         "import ray_tpu_torch.runtime_env.uv\n"
         "import ray_tpu_torch.experimental.channel, ray_tpu_torch.dag\n"
         "import ray_tpu_torch.util.doctor, ray_tpu_torch.scripts.cli\n"
+        "import ray_tpu_torch.job, ray_tpu_torch.job.supervisor\n"
+        "import ray_tpu_torch.client, ray_tpu_torch.client.session_host\n"
+        "import ray_tpu_torch.dashboard, ray_tpu_torch.autoscaler\n"
+        "import ray_tpu_torch.autoscaler.commands\n"
+        "import ray_tpu_torch.autoscaler.gcp_provider\n"
+        "import ray_tpu_torch.util.perf_ledger\n"
+        "import ray_tpu_torch.util.microbenchmark\n"
+        "import ray_tpu_torch.util.scale_bench\n"
         "from ray_tpu_torch.core import serialization\n"
         "serialization.dumps(lambda: 1)\n"
         "grpc = [m for m in sys.modules if m.split('.')[0] == 'grpc']\n"
@@ -210,7 +234,7 @@ def test_subpackages_are_covered_by_the_source_scan():
                    "train/backend.py", "train/worker_group.py",
                    "train/v2.py", "_vendor/cloudpickle/cloudpickle.py",
                    *SERVE_MODULES, *DATA_TUNE_MODULES, *RL_MODULES,
-                   *OPERATOR_MODULES):
+                   *OPERATOR_MODULES, *FLEET_MODULES):
         assert module in files
 
 
@@ -315,6 +339,73 @@ def test_control_plane_imports_no_torch():
             "new = set(sys.modules) - before\n"
             "print(sorted(m for m in new if m.split('.')[0] in "
             "('torch', 'jax', 'numpy', 'cloudpickle')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_fleet_control_plane_imports_no_torch():
+    """The client server, the dashboard process and the autoscaler's
+    loop with the launcher (``rt up``/``down``/``exec``/``autoscale``)
+    never import torch (nor jax, numpy or yaml's absence matters): a
+    fresh interpreter starts the client server and the dashboard on
+    free ports and answers two dashboard requests that need no cluster,
+    builds a scaling loop over the static-pool and GPU-VM providers
+    from a parsed spec, parses every CLI verb of this slice, and
+    resolves the device peaks that ``/api/perf`` reports (through NVML,
+    not torch)."""
+    code = (
+        "import asyncio, sys, urllib.request\n"
+        "before = set(sys.modules)\n"
+        "from ray_tpu_torch.client.server import ClientServer\n"
+        "from ray_tpu_torch.dashboard import start_server\n"
+        "from ray_tpu_torch.autoscaler import commands\n"
+        "from ray_tpu_torch.autoscaler.cluster_spec import "
+        "parse_cluster_spec\n"
+        "from ray_tpu_torch.scripts import cli\n"
+        "async def serve():\n"
+        "    cs = ClientServer('127.0.0.1:1', host='127.0.0.1')\n"
+        "    await cs.start()\n"
+        "    srv = await start_server('127.0.0.1:1', 0, '127.0.0.1')\n"
+        "    port = srv.sockets[0].getsockname()[1]\n"
+        "    codes = []\n"
+        "    for path in ('/', '/api/nope'):\n"
+        "        def get(path=path):\n"
+        "            try:\n"
+        "                return urllib.request.urlopen(\n"
+        "                    f'http://127.0.0.1:{port}{path}').status\n"
+        "            except urllib.error.HTTPError as e:\n"
+        "                return e.code\n"
+        "        codes.append(await asyncio.to_thread(get))\n"
+        "    srv.close(); await cs.stop()\n"
+        "    return codes\n"
+        "assert asyncio.run(serve()) == [200, 404]\n"
+        "for ptype, extra in (('subprocess', {}), ('gcp', {\n"
+        "        'project_id': 'p', 'zone': 'z', 'access_token': 't',\n"
+        "        'head_host': 'localhost',\n"
+        "        'api_base': 'http://127.0.0.1:1'})):\n"
+        "    spec = parse_cluster_spec({'cluster_name': 'c',\n"
+        "        'provider': {'type': ptype, **extra},\n"
+        "        'head_node_type': 'h', 'available_node_types': {\n"
+        "            'h': {'resources': {'CPU': 1}},\n"
+        "            'g': {'resources': {'GPU': 1}, 'max_workers': 1,\n"
+        "                  'machine_type': 'a3-highgpu-1g'}}})\n"
+        "    commands.provider_from_spec(spec, '127.0.0.1:1')\n"
+        "p = cli._build_parser()\n"
+        "for argv in (['up', 'c.yaml'], ['down', 'c.yaml'],\n"
+        "             ['exec', 'c.yaml', 'true'], ['dashboard'],\n"
+        "             ['autoscale', 'c.yaml', '--address', 'h:1'],\n"
+        "             ['job', 'list'], ['logs', '--job', 'x'],\n"
+        "             ['start', '--head', '--client-server-port', '0']):\n"
+        "    p.parse_args(argv)\n"
+        "from ray_tpu_torch.core.resources import nvml_device_name\n"
+        "from ray_tpu_torch.util import xprof\n"
+        "xprof.build_report({}, device_name=nvml_device_name())\n"
+        "new = set(sys.modules) - before\n"
+        "print(sorted(m for m in new if m.split('.')[0] in "
+        "('torch', 'jax', 'numpy', 'cloudpickle')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))

@@ -670,23 +670,45 @@ def test_pool_object_store_raises():
 
 
 def test_later_slices_raise(tmp_path, monkeypatch):
-    """What is still to port (ROADMAP Queue 1 item 6) raises naming it:
-    the remote client's ``rt://`` address and the CLI's job, autoscaler
-    and dashboard commands.  Items 1-4 no longer do: pip/uv envs
-    normalize, ``init(address="auto")`` looks for the CLI's record (and
-    says when there is none), and an actor method binds into a DAG
-    node."""
+    """What the later slices ported behaves as in the JAX package, where
+    a test used to see it raise: an unreachable ``rt://`` address raises
+    the RPC layer's connection error, ``rt up`` of a missing spec raises
+    FileNotFoundError and ``rt dashboard`` with no cluster exits 1, in
+    both packages.  pip/uv envs normalize, ``init(address="auto")``
+    looks for the CLI's record (and says when there is none), and an
+    actor method binds into a DAG node."""
+    import socket
+
+    import ray_tpu
+    import ray_tpu.client.runtime as jax_client
+    import ray_tpu.core.rpc as jax_rpc
     import ray_tpu_torch as rt
+    import ray_tpu_torch.client.runtime as port_client
+    import ray_tpu_torch.core.rpc as port_rpc
+    from ray_tpu.scripts import cli as jax_cli
     from ray_tpu_torch import runtime_env
     from ray_tpu_torch.dag import ClassMethodNode
     from ray_tpu_torch.scripts import cli
 
     monkeypatch.setenv("RT_SESSION_DIR_ROOT", str(tmp_path))
     monkeypatch.delenv("RT_ADDRESS", raising=False)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        rt.init(address="rt://head:10001")
-    assert cli.main(["up", "cluster.yaml"]) == 2
-    assert cli.main(["dashboard"]) == 2
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for pkg, client, rpc in ((ray_tpu, jax_client, jax_rpc),
+                             (rt, port_client, port_rpc)):
+        real = client.RpcClient     # 1 s, not 30 s, to find it closed
+        monkeypatch.setattr(client, "RpcClient", lambda addr, real=real,
+                            **kw: real(addr, **{**kw,
+                                                "connect_timeout": 1.0}))
+        with pytest.raises(rpc.RpcError, match="cannot connect"):
+            pkg.init(address=f"rt://127.0.0.1:{port}")
+        assert not pkg.is_initialized()
+    for main in (jax_cli.main, cli.main):
+        with pytest.raises(FileNotFoundError):
+            main(["up", str(tmp_path / "cluster.yaml")])
+        assert main(["dashboard"]) == 1
     assert runtime_env.normalize({"pip": ["requests"]}) == \
         {"pip": ["requests"]}
     with pytest.raises(ConnectionError, match="no running cluster"):

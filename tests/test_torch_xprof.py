@@ -155,6 +155,65 @@ def test_peak_resolution_env_overrides(monkeypatch):
         pytest.approx(123e12)
 
 
+class _FakeNvml:
+    """The NVML calls ``nvml_device_name`` makes; records the indices
+    it is asked for and names every GPU as an H100."""
+
+    def __init__(self):
+        self.asked = []
+
+    def nvmlInit_v2(self):
+        return 0
+
+    def nvmlShutdown(self):
+        return 0
+
+    def nvmlDeviceGetHandleByIndex_v2(self, index, handle):
+        self.asked.append(index.value)
+        return 0
+
+    def nvmlDeviceGetName(self, handle, buf, size):
+        buf.value = b"NVIDIA H100 80GB HBM3"
+        return 0
+
+
+@pytest.mark.parametrize("visible,index", [(None, 0), ("3,1", 3),
+                                           ("", None)])
+def test_read_side_peaks_name_the_visible_gpu(monkeypatch, visible,
+                                               index):
+    """A process without torch (the dashboard, the rt CLI) names its
+    card through NVML at the first id of ``CUDA_VISIBLE_DEVICES`` (GPU 0
+    where it is unset, none where it is empty) and hands the name to the
+    report, whose peaks are that card's; torch's device is never
+    asked."""
+    import ctypes
+
+    from ray_tpu_torch.core.resources import nvml_device_name
+
+    for env in ("RT_PEAK_FLOPS_PER_DEVICE", "RT_PEAK_HBM_BYTES_PER_SEC",
+                "RT_INTERCONNECT_BYTES_PER_SEC"):
+        monkeypatch.delenv(env, raising=False)
+    fake, real = _FakeNvml(), ctypes.CDLL
+    monkeypatch.setattr(ctypes, "CDLL", lambda lib, *a, **k: (
+        fake if lib == "fake-nvml" else real(lib, *a, **k)))
+    env = {} if visible is None else {"CUDA_VISIBLE_DEVICES": visible}
+    name = nvml_device_name(lib="fake-nvml", env=env)
+    assert fake.asked == ([] if index is None else [index])
+    assert name == ("" if index is None else "NVIDIA H100 80GB HBM3")
+
+    def asked(*_a):
+        raise AssertionError("torch's device was asked")
+
+    monkeypatch.setattr(torch.cuda, "is_available", asked)
+    monkeypatch.setattr(torch.cuda, "get_device_name", asked)
+    peaks = xprof.build_report({}, device_name=name)["peaks"]
+    on = index is not None
+    assert peaks == {"device": name,
+                     "flops_per_sec": 989e12 if on else 0.0,
+                     "hbm_bytes_per_sec": 3.35e12 if on else 0.0,
+                     "interconnect_bytes_per_sec": 450e9 if on else 0.0}
+
+
 def test_cluster_report_waits_for_the_runtime():
     """Without a runtime there is no cluster summary to build the
     report from: the summary's ConnectionError; given a summary, the
