@@ -147,7 +147,18 @@ autoscaler and launcher, the control-plane benchmarks):
   reaping it, ``rt up``/``exec``/``down`` with a GPU worker taking the
   step, and the quick control-plane benchmarks into a ledger of their
   own; every step's loss equal to [main path]'s first bit for bit at
-  24/12/12 launches (see ``fleet_phase``).
+  24/12/12 launches (see ``fleet_phase``);
+- ``[tenant]``, on ``[fleet]``'s head after its jobs: two GPT-2 124M
+  trainers submitted with ``rt job submit``, each ``TrainControllerV2``
+  over a ``TorchTrainer`` gang of two half-GPU workers whose rank 0
+  takes the [main path] steps.  ``train-hi`` (priority 10) preempts
+  ``train-lo`` (priority 0) at its step 3: ``rt jobs`` shows the notice,
+  ``train-lo`` saves its full state within the grace, no process of its
+  gang holds the card when ``train-hi`` starts, ``train-hi`` takes 6
+  steps, ``train-lo`` resumes from its notice checkpoint with an
+  announced failure, every loss equals [main path]'s bit for bit at
+  24/12/12, ``rt telemetry`` charges both jobs' workers' compute to
+  them and ``rt doctor`` exits 0 (see ``tenant_phase``).
 
 Then the serving path (``ray_tpu_torch.llm``: the continuous-batching
 engine over the paged KV cache, plain PyTorch, no kernel of its own)
@@ -196,6 +207,7 @@ with ``[data]``'s, ``[trainer data]``'s and ``[tune]``'s; one JSON line
 ``{"serve_plane": {...}}`` with ``[serve plane]``'s; one JSON line
 ``{"rl": {...}}`` with ``[rl]``'s and ``[entry]``'s; one JSON line
 ``{"cluster": {...}}`` with ``[cluster]``'s; one JSON line
+``{"tenant": {...}}`` with ``[tenant]``'s; one JSON line
 ``{"fleet": {...}}`` with ``[fleet]``'s; the card's name and power
 limit (``nvidia-smi``); and last ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a device-time breakdown of two more training steps, unsharded and sharded (see ``profile_steps``).
@@ -206,6 +218,7 @@ import dataclasses
 import gc
 import json
 import math
+import shlex
 import subprocess
 import sys
 import threading
@@ -3465,6 +3478,390 @@ def fleet_jobs(card: str, env: dict, root: str, unsharded: dict,
         raise RuntimeError(f"[fleet] stop left group {group}: {listed}")
 
 
+# [tenant]: two GPT-2 trainers submitted as jobs contend for the card.
+# One-worker gangs make no placement group (train/trainer.py
+# ``_run_attempt``, as in the JAX package), so nothing could preempt
+# them: each trainer is a gang of two half-GPU workers in one PACK group,
+# rank 0 takes the [main path] steps on the card and rank 1 holds the
+# lease's other half at the gloo gang's barrier.
+TENANT = dict(lo_steps=6, hi_steps=6, notice_step=3, lo_priority=0,
+              hi_priority=10, worker={"CPU": 1.0, "GPU": 0.5})
+
+
+def goodput_flushed(job: str, timeout: float = 30.0) -> float:
+    """Wait until this process's ``compute`` series, tagged ``job``, has
+    reached the controller (one metrics report); returns the wait."""
+    import os
+
+    from ray_tpu_torch.util import goodput
+    from ray_tpu_torch.util import state as rt_state
+
+    t0 = time.monotonic()
+    suffix = f"-{os.getpid()}"
+    while True:
+        for src, snaps in rt_state.telemetry()["sources"].items():
+            if not src.endswith(suffix):
+                continue
+            for snap in snaps:
+                if snap.get("name") == goodput.GAUGE_NAME and any(
+                        s["tags"].get("job") == job
+                        and s["tags"].get("phase") == "compute"
+                        and s["value"] > 0 for s in snap["series"]):
+                    return time.monotonic() - t0
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"[tenant] {job}'s compute never reached "
+                               f"the controller")
+        time.sleep(0.2)
+
+
+def tenant_loop(config):
+    """[tenant]'s train loop, in each rank of a two-worker gang.  Rank 0
+    takes the [main path] configuration's steps (seed-0 weights and
+    batch) from its checkpoint, each under the ``compute`` goodput
+    phase, reporting the loss, the step's launches and its end time; it
+    saves the full train state after step ``save_at``, and in the first
+    attempt waits after step ``wait_at`` for the preemption notice
+    (``train.interrupted()``), saves the state under
+    ``train.checkpoint_on_notice()``, reports it and waits to be killed.
+    With ``watch``, before it touches the card it reports which of
+    those processes are alive or map libtorch and the card's free
+    memory.  Rank 1 holds the lease's other half: it waits at the gang's
+    barrier, and so does rank 0 once its steps are done."""
+    import glob
+    import os
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.train import distributed
+    from ray_tpu_torch.util import goodput
+
+    rank = train.get_world_rank()
+    ckpt = train.get_checkpoint()
+    attempt = "resumed" if ckpt is not None else "first"
+    with open(f"{config['pids']}-{attempt}-{rank}", "w") as f:
+        f.write(str(os.getpid()))
+    if rank != 0:
+        dist.barrier()
+        return True
+    first = {"t_start": time.time()}
+    if config.get("watch"):
+        pids = [int(open(p).read()) for p in glob.glob(config["watch"]
+                                                       + "-*")]
+        first["watched"] = pids
+        first["alive"] = [p for p in pids if alive(p)]
+        first["still_holding"] = []
+        for p in first["alive"]:
+            with contextlib.suppress(OSError):
+                if maps_libtorch(p):
+                    first["still_holding"].append(p)
+        free, total = torch.cuda.mem_get_info()
+        first["card_free_gb"], first["card_total_gb"] = free / 1e9, \
+            total / 1e9
+    cfg, state, step, data = main_path_parts()
+    start = 0
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        distributed.restore_train_state(state, ckpt.load_pytree("state"))
+        start = state.step
+        first["restore_s"] = time.perf_counter() - t0
+    for i in range(start, config["steps"]):
+        _kernels.reset_launches()
+        with goodput.ledger().phase("compute"):
+            state, m = step(state, data)
+            m = distributed.metrics_to_host(m)     # waits for the step
+        metrics = {"step": i + 1, "loss": m["loss"], "start": start,
+                   "launches": dict(_kernels.launches), "pid": os.getpid(),
+                   "t": time.time(), **first}
+        first = {}
+        checkpoint = None
+        if i + 1 == config.get("save_at"):
+            with train.checkpoint_dir() as d:
+                checkpoint = train.Checkpoint(d)
+                checkpoint.save_pytree(
+                    "state", distributed.train_state_tree(state))
+        train.report(metrics, checkpoint=checkpoint)
+        with open(config["progress"], "w") as f:
+            json.dump(metrics, f)
+        if i + 1 == config.get("wait_at") and start == 0:
+            waited = time.time()
+            while not train.interrupted():
+                if time.time() - waited > 300:
+                    raise RuntimeError("no preemption notice in 300 s")
+                time.sleep(0.05)
+            noticed = time.time()
+            deadline = train.interruption()["deadline"]
+            with train.checkpoint_on_notice():
+                with train.checkpoint_dir() as d:
+                    checkpoint = train.Checkpoint(d)
+                    checkpoint.save_pytree(
+                        "state", distributed.train_state_tree(state))
+                    saved = time.time()
+                    size = sum(os.path.getsize(os.path.join(r, n))
+                               for r, _d, ns in os.walk(d) for n in ns)
+                    train.report({
+                        "step": i + 1, "loss": m["loss"], "start": start,
+                        "notice": True, "noticed": noticed,
+                        "saved": saved, "deadline": deadline,
+                        "bytes": size}, checkpoint=checkpoint)
+            time.sleep(config["grace_s"] + 120)
+            raise RuntimeError("not preempted after the grace")
+    goodput_flushed(goodput.current_job_id())
+    dist.barrier()
+    return True
+
+
+def tenant_job(role: str, config: dict) -> int:
+    """A [tenant] job's entrypoint: ``TrainControllerV2`` over a
+    ``TorchTrainer`` running ``tenant_loop`` on a two-worker gang, the
+    victim elastic (2 to 2 workers), the preemptor fixed, no failure
+    budget.  Writes what the fit gave to ``config["results"]``."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (ElasticScalingPolicy, FailurePolicy,
+                                     FixedScalingPolicy, RunConfig,
+                                     ScalingConfig, TorchTrainer,
+                                     TrainControllerV2)
+
+    rt.init(address="auto")
+    worker = TENANT["worker"]
+    trainer = TorchTrainer(
+        tenant_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=2,
+                                     resources_per_worker=worker,
+                                     placement_strategy="PACK"),
+        run_config=RunConfig(name=role, storage_path=config["storage"]))
+    policy = FixedScalingPolicy(2) if role == "hi" else \
+        ElasticScalingPolicy(min_workers=2, max_workers=2,
+                             resources_per_worker=worker)
+    controller = TrainControllerV2(
+        trainer, scaling_policy=policy,
+        failure_policy=FailurePolicy(max_failures=0))
+    out = {"error": None}
+    try:
+        result = controller.fit()
+        out["error"] = repr(result.error) if result.error else None
+        out["history"] = [dict(h["metrics"],
+                               preempt_ckpt=bool(h.get("preempt_ckpt")))
+                          for h in result.metrics_history]
+    except Exception as e:  # noqa: BLE001 — the phase reads the file
+        out["error"] = repr(e)
+    out["announced"] = controller.announced_failures
+    out["attempt_sizes"] = controller.attempt_sizes
+    out["backoff_delays"] = controller.backoff_delays
+    out["states"] = [s["state"] for s in controller.state_history]
+    with open(config["results"], "w") as f:
+        json.dump(out, f)
+    rt.shutdown()
+    return 1 if out["error"] else 0
+
+
+def tenant_phase(card: str, env: dict, root: str, unsharded: dict) -> dict:
+    """[tenant] Priority preemption of one GPT-2 trainer by another on
+    the [fleet] head.  ``train-lo`` (priority 0) is submitted with ``rt
+    job submit``; once it reports step 3, ``train-hi`` (priority 10),
+    whose gang needs the card ``train-lo`` holds.  Holds: (1) ``rt jobs
+    --format json`` shows ``train-lo`` preempting during its grace; (2)
+    its notice checkpoint is saved within the grace; (3) when
+    ``train-hi``'s rank 0 starts, no process of ``train-lo``'s gang is
+    alive or maps libtorch; (4) ``train-hi`` SUCCEEDS, its 6 losses
+    [main path]'s first 6 at 24/12/12 a step; (5) ``train-lo`` SUCCEEDS
+    with an announced failure, a backoff and ``starts == [0, 3]``,
+    resuming from its notice checkpoint; (6) its losses over both
+    attempts are [main path]'s; (7) ``rt telemetry``'s ``per_job`` has
+    compute for both jobs; (8) ``rt doctor`` exits 0.  Prints the
+    timings with the card."""
+    import os
+
+    from ray_tpu_torch.core.config import RuntimeConfig
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    module = os.path.splitext(os.path.basename(__file__))[0]
+    grace = RuntimeConfig.from_env().preemption_grace_s
+    entry = os.path.join(root, "tenant_entry.py")
+    with open(entry, "w") as f:
+        f.write("import json, sys\n"
+                f"sys.path.insert(0, {here!r})\n"
+                f"import {module} as smoke\n"
+                "sys.exit(smoke.tenant_job(sys.argv[1], "
+                "json.loads(sys.argv[2])))\n")
+    pids = os.path.join(root, "tenant_pids")
+    configs = {}
+    for role, steps in (("lo", TENANT["lo_steps"]),
+                        ("hi", TENANT["hi_steps"])):
+        configs[role] = {
+            "steps": steps, "grace_s": grace,
+            "storage": os.path.join(root, "tenant"),
+            "pids": f"{pids}-{role}",
+            "progress": os.path.join(root, f"tenant_{role}.progress"),
+            "results": os.path.join(root, f"tenant_{role}.json")}
+    configs["lo"].update(save_at=1, wait_at=TENANT["notice_step"])
+    configs["hi"].update(watch=f"{pids}-lo-first")
+
+    def submit(role: str) -> float:
+        t = time.time()
+        r = rt_cli(env, "job", "submit", "--id", f"train-{role}",
+                   "--priority", str(TENANT[f"{role}_priority"]), "--",
+                   sys.executable, entry, role,
+                   shlex.quote(json.dumps(configs[role])))
+        if r.returncode != 0:
+            raise RuntimeError(f"[tenant] submit train-{role}: "
+                               f"{r.stdout}{r.stderr}")
+        return t
+
+    def jobs() -> dict:
+        r = rt_cli(env, "jobs", "--format", "json")
+        return {j["job_id"]: j for j in json.loads(r.stdout or "[]")}
+
+    def finished(job: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            state = jobs().get(job, {}).get("state")
+            if state in ("SUCCEEDED", "FAILED", "STOPPED"):
+                return state
+            time.sleep(0.5)
+        raise RuntimeError(f"[tenant] {job} did not finish in {timeout} s")
+
+    def per_job() -> dict:
+        r = rt_cli(env, "telemetry", "--format", "json")
+        return {job: phases.get("compute", 0.0) for job, phases in
+                (json.loads(r.stdout)["goodput"].get("per_job")
+                 or {}).items()}
+
+    out = {"grace_s": grace}
+    t_lo = submit("lo")
+    progress = configs["lo"]["progress"]
+    while not (os.path.exists(progress) and json.load(open(progress))
+               .get("step") == TENANT["notice_step"]):
+        if time.time() - t_lo > 300 or jobs().get("train-lo", {}).get(
+                "state") not in ("PENDING", "RUNNING"):
+            raise RuntimeError("[tenant] train-lo never reached step 3: "
+                               + rt_cli(env, "job", "logs",
+                                        "train-lo").stdout[-3000:])
+        time.sleep(0.2)
+    t_hi = submit("hi")
+    notice = None
+    while notice is None:
+        notice = jobs().get("train-lo", {}).get("preempting")
+        if notice is None and time.time() - t_hi > 120:
+            raise RuntimeError("[tenant] train-lo never showed preempting")
+    print(f"  rt jobs: train-lo preempting, {notice['remaining_s']:.3f} s "
+          f"of its {grace:.1f} s grace left, by {notice['by']!r} "
+          f"({notice['reason']})")
+    if notice["by"] != "train-hi":
+        raise RuntimeError(f"[tenant] preempted by {notice['by']!r}")
+    hi_state = finished("train-hi", 300)
+    out["per_job_after_hi"] = per_job()
+    lo_state = finished("train-lo", 300)
+    out["per_job_after_lo"] = per_job()
+    lo = json.load(open(configs["lo"]["results"]))
+    hi = json.load(open(configs["hi"]["results"]))
+    if hi_state != "SUCCEEDED" or lo_state != "SUCCEEDED" \
+            or lo["error"] or hi["error"]:
+        raise RuntimeError(
+            f"[tenant] train-hi {hi_state} {hi['error']}, train-lo "
+            f"{lo_state} {lo['error']}: "
+            + rt_cli(env, "job", "logs", "train-lo").stdout[-3000:]
+            + rt_cli(env, "job", "logs", "train-hi").stdout[-3000:])
+
+    want = unsharded["losses"]
+    steps = [h for h in lo["history"] if not h.get("notice")]
+    notes = [h for h in lo["history"] if h.get("notice")]
+    starts = sorted({h["start"] for h in lo["history"]})
+    lo_losses = {h["step"]: h["loss"] for h in steps}
+    hi_losses = [h["loss"] for h in hi["history"]]
+    gaps = [abs(lo_losses[s] - want[s - 1]) for s in sorted(lo_losses)]
+    hi_gaps = [abs(a - b) for a, b in zip(hi_losses, want)]
+    print(f"  train-lo losses by step {lo_losses}; starts {starts}; "
+          f"announced {lo['announced']}, backoff {lo['backoff_delays']}, "
+          f"attempts {lo['attempt_sizes']}; states {lo['states']}")
+    print(f"  train-hi losses {hi_losses}; [main path] {want[:6]}; largest"
+          f" gap train-lo {max(gaps):.3e}, train-hi {max(hi_gaps):.3e} "
+          f"(bit-equal expected)")
+    for h in steps + hi["history"]:
+        if h["launches"] != FLEET_LAUNCHES:
+            raise RuntimeError(f"[tenant] step {h['step']} launches "
+                               f"{h['launches']}")
+    if len(notes) != 1 or not notes[0]["preempt_ckpt"]:
+        raise RuntimeError(f"[tenant] notice reports {notes}")
+    note = notes[0]
+    if sorted(lo_losses) != list(range(1, TENANT["lo_steps"] + 1)) \
+            or any(gaps) or len(hi_losses) != TENANT["hi_steps"] \
+            or any(hi_gaps):
+        raise RuntimeError("[tenant] losses differ from [main path]'s")
+    if starts != [0, TENANT["notice_step"]] or lo["announced"] < 1 \
+            or not lo["backoff_delays"] \
+            or note["step"] != TENANT["notice_step"]:
+        raise RuntimeError(f"[tenant] train-lo did not resume from its "
+                           f"notice checkpoint: {lo}")
+    issued = note["deadline"] - grace
+    save_s = note["saved"] - note["noticed"]
+    margin = note["deadline"] - note["saved"]
+    gbps = note["bytes"] / save_s / 1e9
+    print(f"  notice checkpoint: seen by rank 0 "
+          f"{note['noticed'] - issued:.3f} s after the controller's "
+          f"notice, {note['bytes'] / 1e9:.3f} GB saved in {save_s:.3f} s "
+          f"({gbps:.3f} GB/s), {margin:.3f} s before the {grace:.1f} s "
+          f"grace ended (card: {card})")
+    if margin <= 0:
+        raise RuntimeError("[tenant] the notice checkpoint outlasted the "
+                           "grace")
+    hi_first = hi["history"][0]
+    print(f"  train-hi's rank 0 starts: train-lo's gang pids "
+          f"{hi_first['watched']}, alive {hi_first['alive']}, holding "
+          f"libtorch {hi_first['still_holding']}; card free "
+          f"{hi_first['card_free_gb']:.3f} of "
+          f"{hi_first['card_total_gb']:.3f} GB")
+    if len(hi_first["watched"]) != 2 or hi_first["alive"] \
+            or hi_first["still_holding"]:
+        raise RuntimeError("[tenant] train-lo's gang outlived its grace")
+    resumed = [h for h in steps if h["start"] == TENANT["notice_step"]]
+    lo_first = steps[0]
+    out.update(
+        lo_submit_to_first_step_s=lo_first["t"] - t_lo,
+        hi_submit_to_first_step_s=hi_first["t"] - t_hi,
+        notice_to_seen_s=note["noticed"] - issued,
+        notice_to_saved_s=note["saved"] - issued, notice_save_s=save_s,
+        notice_save_gb_s=gbps,
+        notice_bytes=note["bytes"], notice_margin_s=margin,
+        card_free_to_hi_first_step_s=hi_first["t"] - note["deadline"],
+        hi_start_card_free_gb=hi_first["card_free_gb"],
+        lo_restart_to_resumed_step_s=resumed[0]["t"] - note["deadline"],
+        lo_restore_s=resumed[0]["restore_s"],
+        loss_gap_lo=max(gaps), loss_gap_hi=max(hi_gaps))
+    print(f"  submit to first step: train-lo "
+          f"{out['lo_submit_to_first_step_s']:.3f} s, train-hi "
+          f"{out['hi_submit_to_first_step_s']:.3f} s; grace end (card "
+          f"free) to train-hi's first step "
+          f"{out['card_free_to_hi_first_step_s']:.3f} s; to train-lo's "
+          f"resumed step {out['lo_restart_to_resumed_step_s']:.3f} s "
+          f"(restore {out['lo_restore_s']:.3f} s) (host clock; card: "
+          f"{card})")
+    print(f"  rt telemetry per_job compute s: after train-hi "
+          f"{out['per_job_after_hi']}, after train-lo "
+          f"{out['per_job_after_lo']}")
+    if not out["per_job_after_hi"].get("train-hi", 0) > 0 \
+            or not out["per_job_after_lo"].get("train-lo", 0) > 0:
+        raise RuntimeError("[tenant] per-job goodput misses a job")
+    deadline = time.monotonic() + 60
+    while True:
+        doctor = rt_cli(env, "doctor", "--format", "json")
+        if doctor.returncode == 0 or time.monotonic() > deadline:
+            break
+        time.sleep(1.0)
+    critical = [f["check"] for f in json.loads(doctor.stdout or "{}")
+                .get("findings", []) if f["severity"] == "critical"]
+    print(f"  rt doctor: exit {doctor.returncode}, critical {critical}")
+    if doctor.returncode != 0 or critical:
+        raise RuntimeError(f"[tenant] rt doctor: {doctor.stdout}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  [tenant] {out['wall_s']:.3f} s (card: {card})")
+    return out
+
+
 def fleet_client(card: str, env: dict, client_addr: str, unsharded: dict,
                  out: dict) -> None:
     """(2) a driver in a process that sees no GPU, through rt://."""
@@ -3537,7 +3934,7 @@ def fleet_client(card: str, env: dict, client_addr: str, unsharded: dict,
 def fleet_dashboard(card: str, env: dict, address: str, pids: list,
                     out: dict) -> None:
     """(3) the dashboard over the head: every route, its JSON shape,
-    the GPU, the two jobs' terminal states, the rt_ series."""
+    the GPU, the four jobs' terminal states, the rt_ series."""
     from ray_tpu_torch.util import state as rt_state
 
     workers = []
@@ -3601,7 +3998,8 @@ def fleet_dashboard(card: str, env: dict, address: str, pids: list,
           f"in the dashboard process: {torch_mapped}")
     if [n["resources"].get("GPU") for n in nodes] != [1.0] \
             or jobs != {"fleet-step": "SUCCEEDED",
-                        "fleet-sleep": "STOPPED"} \
+                        "fleet-sleep": "STOPPED", "train-lo": "SUCCEEDED",
+                        "train-hi": "SUCCEEDED"} \
             or not series or torch_mapped:
         raise RuntimeError(f"[fleet] dashboard: {nodes} {jobs} {series}")
 
@@ -3777,7 +4175,7 @@ def fleet_benchmarks(card: str, root: str, out: dict) -> None:
                          for r in rows}
 
 
-def fleet_phase(card: str, unsharded: dict) -> dict:
+def fleet_phase(card: str, unsharded: dict, clock=None) -> dict:
     """[fleet] The operator's fleet tools, each driving the main path's
     step on the card: (1) ``rt start --head --client-server-port`` (the
     head detects ``GPU: 1``); ``rt job submit --wait`` of an entrypoint
@@ -3785,7 +4183,9 @@ def fleet_phase(card: str, unsharded: dict) -> dict:
     in a ``num_gpus=1`` actor (the entrypoint itself sees no GPU: the
     supervisor's lease holds none); ``rt job logs`` and ``rt logs --job``
     show the same lines; a second job stopped by ``rt job stop`` reaches
-    STOPPED with its process group gone; ``rt job list`` shows both.
+    STOPPED with its process group gone; ``rt job list`` shows both;
+    then ``[tenant]`` on the same head (``tenant_phase``, timed under its
+    own label in ``clock``).
     (2) a driver in a process with ``CUDA_VISIBLE_DEVICES=""`` connects
     with ``init(address="rt://...")``, takes the step in a ``num_gpus=1``
     task and moves [runtime]'s bf16 tensor through the relay bit for
@@ -3839,6 +4239,15 @@ def fleet_phase(card: str, unsharded: dict) -> dict:
         if "GPU=1" not in status or len(pids) != 3:
             raise RuntimeError(f"[fleet] head: {status} {pids}")
         fleet_jobs(card, env, root, unsharded, out)
+        # [tenant] on the same head, under its own label in ``clock``.
+        if clock is not None:
+            clock.start("[tenant] priority preemption on the [fleet] head:"
+                        " two GPT-2 124M trainers submitted as jobs, "
+                        "train-hi (priority 10) preempts train-lo")
+        out["tenant"] = tenant_phase(card, env, root, unsharded)
+        if clock is not None:
+            clock.start("[fleet] continues: the rt:// driver, the "
+                        "dashboard, the autoscaler, rt up, the benchmarks")
         # (2) the rt:// driver; (3) the dashboard; then stop the head.
         fleet_client(card, env, client_addr, unsharded, out)
         client_server_torch = maps_libtorch(pids[2])
@@ -3872,7 +4281,8 @@ def fleet_phase(card: str, unsharded: dict) -> dict:
         os.environ.pop("RT_AUTOSCALING_ENABLED", None)
     shutil.rmtree(root, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
-    print(f"  [fleet] {out['wall_s']:.3f} s (card: {card})")
+    print(f"  [fleet] {out['wall_s']:.3f} s, [tenant]'s "
+          f"{out['tenant']['wall_s']:.3f} s included (card: {card})")
     return out
 
 
@@ -4789,7 +5199,7 @@ def main() -> int:
     clock.start("[fleet] the fleet tools: rt job submit/stop/logs, an rt:// "
                 "driver, the dashboard, the autoscaler, rt up/exec/down, the "
                 "control-plane benchmarks, each step on the card")
-    fleet = fleet_phase(card, unsharded)
+    fleet = fleet_phase(card, unsharded, clock)
     free_device_memory()
 
     serving = []
@@ -4820,6 +5230,7 @@ def main() -> int:
     print(json.dumps({"serve_plane": plane}))
     print(json.dumps({"rl": rl}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"tenant": fleet.pop("tenant")}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"phase_walls": clock.walls,
                       "total_s": time.perf_counter() - clock.t0}))

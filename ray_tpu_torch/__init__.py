@@ -164,3 +164,11 @@ def available_resources() -> Dict[str, float]:
 
 def nodes():
     return _runtime_mod.get_runtime().nodes()
+
+
+def timeline(filename: Optional[str] = None):
+    """Chrome-trace export of recorded task events (ref: ray.timeline,
+    python/ray/_private/state.py:960)."""
+    from .util import state as _state
+
+    return _state.timeline(filename)

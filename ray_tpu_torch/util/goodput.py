@@ -34,13 +34,29 @@ PHASES = ("compute", "compile", "checkpoint", "checkpoint_on_notice",
 
 GAUGE_NAME = "rt_goodput_seconds"
 
+# Multi-tenant attribution: the submitted-job id stamped on every
+# published phase series ("who is paying for this cluster").  Defaults
+# from RT_JOB_ID (the supervisor exports it into the entrypoint); train
+# workers, spawned by node agents and not by the entrypoint, get it via
+# set_job_id() from the gang bootstrap.
+_job_id: Optional[str] = None
+
+
+def set_job_id(job_id: str) -> None:
+    """Stamp all subsequently published goodput series with this
+    submitted-job id (and republish so the tag lands now)."""
+    global _job_id
+    _job_id = job_id or None
+    led = _ledger
+    if led is not None:
+        led._republish()
+
+
 def current_job_id() -> str:
-    """The submitted-job id stamped on every published phase series
-    ("who is paying for this cluster"): ``RT_JOB_ID``, which a job's
-    supervisor exports into its entrypoint."""
     import os
 
-    return os.environ.get("RT_JOB_ID", "")
+    return _job_id if _job_id is not None \
+        else os.environ.get("RT_JOB_ID", "")
 
 
 class _PhaseSpan:
