@@ -1246,12 +1246,15 @@ class Worker:
         """On-demand ``torch.profiler`` capture: trace what this
         worker's CUDA device and threads do for ``duration_s`` into a
         Chrome trace under the session and return its path and the
-        device kernels it holds by name.  The capture runs on an
-        executor thread while user code (a train loop) launches its
-        kernels on another; CUPTI records the whole process's device
-        activity.  Guarded: torch is only touched if user code ALREADY
-        imported it in this process (control-plane work never pays the
-        import); ``force`` opts into importing it anyway."""
+        device kernels it holds by name (``util.profiling.torch_capture``).
+        The capture runs on an executor thread while user code (a train
+        loop, a generation engine) runs on others; it records every
+        thread's host operators and scopes and the whole process's
+        device activity.  Guarded: torch is only touched if user code
+        ALREADY imported it in this process (control-plane work never
+        pays the import); ``force`` opts into importing it anyway."""
+        from ..util.profiling import torch_capture
+
         if "torch" not in sys.modules and not p.get("force"):
             return {"ok": False,
                     "error": "torch not imported in this worker "
@@ -1262,33 +1265,9 @@ class Worker:
             f"torch-{self.node_id_hex[:8]}-{os.getpid()}-"
             f"{int(time.time())}")
 
-        def _capture():
-            import json
-
-            import torch
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            os.makedirs(log_dir, exist_ok=True)
-            with profile(activities=acts) as prof:
-                # The capture window: activity on OTHER threads (the
-                # train loop) lands in the trace while we sleep.
-                time.sleep(duration)
-            path = os.path.join(log_dir, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f).get("traceEvents", [])
-            kernels: Dict[str, int] = {}
-            for e in events:
-                if e.get("cat") == "kernel":
-                    kernels[e["name"]] = kernels.get(e["name"], 0) + 1
-            return path, kernels
-
         try:
             path, kernels = await asyncio.get_event_loop().run_in_executor(
-                None, _capture)
+                None, torch_capture, duration, log_dir)
         except BaseException as e:  # noqa: BLE001 — shipped to caller
             return {"ok": False, "error": repr(e)}
         return {"ok": True, "path": path, "kernels": kernels}

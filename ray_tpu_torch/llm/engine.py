@@ -36,6 +36,32 @@ request id gets ``engine_waiting``, ``prefill`` and ``decode`` spans in
 the span ring (``util/spans``).  The first forward of each (kind,
 shape) runs under ``xprof.harvest_step`` and registers the program
 ``llm_prefill[T]`` or ``llm_decode`` with xprof.
+
+Beyond the JAX engine, a phase clock splits the engine thread's time
+into ``PHASES`` (``_PhaseClock``), read through ``stats()`` as
+``phase_wall_s`` and ``phase_cpu_s``:
+
+- ``admit``: cancellations and admissions, each prefill's arrays,
+  forward launch and first-token sample, all but its logits copy;
+- ``tables``: the decode step's page allocation and its token,
+  position and page-table arrays, copied to the device;
+- ``issue``: the decode forward's launch (Python issuing its kernels);
+- ``wait``: every copy of logits to the host, which waits for the
+  device to finish the forward and then to take the interpreter lock
+  back;
+- ``sample``: sampling the decode rows, their frames and retirements;
+- ``other``: the rest of ``step()``;
+- ``idle``: from one step's end to the next's start on the same thread
+  (``_loop`` waiting for work).
+
+A host phase's wall time less its CPU time is time the thread spent
+off the CPU: waiting for the interpreter lock while another thread
+held it, or blocked in a call.
+While a torch profiler runs, each step is also an ``engine.step``
+scope on the profiler's clock with one ``engine.<phase>`` scope per
+phase inside it (``idle`` has none), so that a capture of all threads
+names the phase under each of the device's idle gaps.  These stay out
+of the span ring: a few a step would push out the request spans.
 """
 
 from __future__ import annotations
@@ -82,6 +108,71 @@ def _bucket(n: int, floor: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+PHASES = ("admit", "tables", "issue", "wait", "sample", "other", "idle")
+
+
+class _PhaseClock:
+    """The engine thread's time split into ``PHASES``: ``switch(p)``
+    reads the wall and thread CPU clocks once, adds the time since the
+    last switch to the running phase's totals (seconds, so that
+    ``stats()`` only copies them) and makes ``p`` the running phase.
+
+    While a profiler runs (``torch.autograd.profiler._is_profiler_enabled``,
+    set for the whole process, unlike the thread-local
+    ``torch._C._autograd._profiler_enabled()``), a switch also ends the
+    running phase's scope and enters ``engine.<p>``, inside an
+    ``engine.step`` scope entered first.  A switch to ``idle``, or any
+    switch once the profiler has stopped, ends every scope, so no scope
+    outlives the step it belongs to: torch crashes where a scope begun
+    under one profiler ends under the next.  With no profiler the
+    scopes cost one attribute read a switch."""
+
+    def __init__(self):
+        self.wall = dict.fromkeys(PHASES, 0.0)
+        self.cpu = dict.fromkeys(PHASES, 0.0)
+        self.phase = "idle"
+        self._thread: Optional[int] = None
+        self._t = self._c = 0
+        self._scopes: List[Any] = []        # outermost first
+
+    def begin_step(self) -> None:
+        """Close ``idle`` and open ``other``.  A step on another thread
+        than the last starts the clocks afresh (CPU time is per
+        thread), leaving the gap uncounted."""
+        tid = threading.get_ident()
+        if tid != self._thread:
+            self._thread = tid
+            self._t, self._c = time.perf_counter_ns(), time.thread_time_ns()
+        self.switch("other")
+
+    def switch(self, phase: str) -> str:
+        """Make ``phase`` the running phase; returns the one it ends."""
+        prev = self.phase
+        if phase == prev:
+            return prev
+        t, c = time.perf_counter_ns(), time.thread_time_ns()
+        self.wall[prev] += (t - self._t) * 1e-9
+        self.cpu[prev] += (c - self._c) * 1e-9
+        self._t, self._c, self.phase = t, c, phase
+        if self._scopes or torch.autograd.profiler._is_profiler_enabled:
+            self._rescope(phase)
+        return prev
+
+    def _rescope(self, phase: str) -> None:
+        if len(self._scopes) > 1:
+            self._scopes.pop().__exit__(None, None, None)
+        if phase == "idle" \
+                or not torch.autograd.profiler._is_profiler_enabled:
+            while self._scopes:
+                self._scopes.pop().__exit__(None, None, None)
+            return
+        for name in ([] if self._scopes else ["engine.step"]) \
+                + [f"engine.{phase}"]:
+            scope = torch.autograd.profiler.record_function(name)
+            scope.__enter__()
+            self._scopes.append(scope)
 
 
 class _Sequence:
@@ -193,6 +284,7 @@ class GenerationEngine:
         self._ttft_requests = 0
         self._tpot_s_total = 0.0
         self._tpot_count = 0
+        self._clock = _PhaseClock()
         # (kind, token shape) -> the _fwd its program was registered
         # for: a swapped _fwd (fault injection) registers anew.
         self._programs: Dict[Any, Any] = {}
@@ -344,6 +436,13 @@ class GenerationEngine:
             self.stop()
 
     def stats(self) -> Dict[str, Any]:
+        """The engine's counters and gauges.  ``phase_wall_s`` and
+        ``phase_cpu_s`` map each of ``PHASES`` to the engine thread's
+        cumulative wall and CPU seconds in it (see the module's
+        docstring), up to the last phase boundary."""
+        clock = self._clock
+        phases = {"phase_wall_s": dict(clock.wall),
+                  "phase_cpu_s": dict(clock.cpu)}
         with self._lock:
             return {
                 "kv_pages_used": self.pool.used,
@@ -363,6 +462,7 @@ class GenerationEngine:
                 "ttft_prefill_s_total": self._prefill_s_total,
                 "tpot_s_total": self._tpot_s_total,
                 "tpot_count": self._tpot_count,
+                **phases,
             }
 
     # ------------------------------------------------------ engine loop
@@ -395,16 +495,23 @@ class GenerationEngine:
         """ONE engine iteration: cancellations -> admissions (prefill)
         -> batched decode -> retirement.  Public for deterministic
         single-step tests."""
-        with torch.inference_mode():
-            self._process_cancellations()
-            self._admit()
-            if self._running:
-                self._decode_step()
-        self._steps += 1
-        self._last_batch = len(self._running)
-        self._publish_gauges()
-        return {"running": len(self._running),
-                "waiting": len(self._waiting)}
+        clock = self._clock
+        clock.begin_step()
+        try:
+            with torch.inference_mode():
+                clock.switch("admit")
+                self._process_cancellations()
+                self._admit()
+                if self._running:
+                    self._decode_step()
+                clock.switch("other")
+            self._steps += 1
+            self._last_batch = len(self._running)
+            self._publish_gauges()
+            return {"running": len(self._running),
+                    "waiting": len(self._waiting)}
+        finally:
+            clock.switch("idle")
 
     def _process_cancellations(self) -> None:
         with self._lock:
@@ -473,9 +580,12 @@ class GenerationEngine:
         and keeps the pool ``_fwd`` hands back.  The first forward of a
         (kind, token shape) for this ``_fwd`` runs under
         ``xprof.harvest_step`` and registers ``llm_prefill[T]`` or
-        ``llm_decode``."""
+        ``llm_decode``.  A decode forward's launch is the ``issue``
+        phase; a prefill's stays in ``admit``."""
         dev = [torch.from_numpy(a).to(self.device)
                for a in (tokens, table, positions)]
+        if kind == "decode":
+            self._clock.switch("issue")
         args = (self._params, dev[0], self._kv["k_pages"],
                 self._kv["v_pages"], dev[1], dev[2])
         key = (kind, tokens.shape)
@@ -523,7 +633,10 @@ class GenerationEngine:
         self._count("prefill", n)
         with self._lock:
             self._running.append(seq)
-        self._emit_token(seq, logits[0, n - 1].cpu().numpy())
+        phase = self._clock.switch("wait")
+        row = logits[0, n - 1].cpu().numpy()
+        self._clock.switch(phase)
+        self._emit_token(seq, row)
         if first_admission:
             t_first = time.time()
             self._prefill_s_total += t_first - t_admit
@@ -535,6 +648,7 @@ class GenerationEngine:
     def _decode_step(self) -> None:
         """One batched decode forward over every running sequence."""
         B = self.cfg.max_batch
+        self._clock.switch("tables")
         for seq in list(self._running):
             if seq in self._running:   # an earlier ensure may evict it
                 self._ensure_page(seq)
@@ -549,7 +663,9 @@ class GenerationEngine:
             positions[i, 0] = seq.n_cached
             table[i] = self._page_table_row(seq)
         logits = self._forward("decode", tokens, table, positions)
+        self._clock.switch("wait")
         logits_np = logits[:len(batch), 0].cpu().numpy()
+        self._clock.switch("sample")
         for i, seq in enumerate(batch):
             seq.n_cached += 1
             self._emit_token(seq, logits_np[i])

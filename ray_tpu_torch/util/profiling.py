@@ -12,12 +12,14 @@ directly, like py-spy --dump.
 
 from __future__ import annotations
 
+import json
+import os
 import sys
 import threading
 import time
 import traceback
 from collections import Counter
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 def dump_stacks() -> str:
@@ -29,6 +31,35 @@ def dump_stacks() -> str:
         out.extend(line.rstrip() for line in
                    traceback.format_stack(frame))
     return "\n".join(out)
+
+
+def torch_capture(duration_s: float, log_dir: str
+                  ) -> Tuple[str, Dict[str, int]]:
+    """A ``torch.profiler`` capture of this process for ``duration_s``,
+    written as a Chrome trace to ``<log_dir>/trace.json``; returns its
+    path and the device kernels it holds by name and launch count.
+
+    It records every thread's host operators and scopes (a train loop's,
+    the generation engine's ``engine.*`` phases), not only the calling
+    thread's, which is all a default capture holds; the card's activity
+    is the whole process's either way."""
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts, experimental_config=_ExperimentalConfig(
+            profile_all_threads=True)) as prof:
+        time.sleep(duration_s)
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    return path, dict(kernels)
 
 
 def sample_profile(duration_s: float = 2.0, hz: float = 100.0,
